@@ -1,0 +1,52 @@
+// Helpers shared by the port's attention kernels: f32 widening of the
+// storage types, rounding stores, and 16-byte vector loads.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro {
+
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float v, float* p) { *p = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16(v);
+}
+
+// Elements of T in one 16-byte load.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int n = 4;
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int n = 8;
+};
+
+// One 16-byte load (p must be 16-byte aligned), widened to f32.
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    out[2 * j] = f.x;
+    out[2 * j + 1] = f.y;
+  }
+}
+
+}  // namespace repro

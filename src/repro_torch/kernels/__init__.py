@@ -1,0 +1,11 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+* ``flash_attention`` — prefill attention (``csrc/flash_attention.cu``),
+  replacing ``repro.kernels.flash_attention.flash_attention_pallas``.
+* ``paged_attention`` — decode attention over KV pages
+  (``csrc/paged_attention.cu``), replacing
+  ``repro.kernels.paged_attention.paged_attention_pallas``.
+
+The CUDA sources are compiled on first use (``_build``); CPU tensors take
+the plain PyTorch versions.
+"""

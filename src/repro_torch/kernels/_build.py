@@ -1,0 +1,123 @@
+"""Build and load the port's CUDA kernels (plain-C shared libraries).
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+``build/lib<name>-<hash>.so`` at the repository root, where ``<hash>`` is
+taken from the source, the shared ``csrc/*.cuh`` headers and the flags, so
+a changed source is never served by a stale library. Nothing is built at import time: the first wrapper
+call that launches a kernel builds its library (or :func:`build_all` builds
+every library in parallel), and the library is then loaded with
+``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+KERNELS = ("flash_attention", "paged_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+#: ctypes signatures of the exported C entry points.
+SIGNATURES = {
+    "flash_attention": (
+        "flash_attention_fwd",
+        # q, k, v, o, B, H, KH, Lq, Lk, D, causal, scale, dtype, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    ),
+    "paged_attention": (
+        "paged_attention_fwd",
+        # q, k_pages, v_pages, block_tables, lengths, o,
+        # B, H, KH, D, page, pps, scale, q_dtype, kv_dtype, stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
+}
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default prefix. Raises when there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+        "kernels are compiled on first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Build path keyed by the source, the shared headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(name: str) -> tuple[Path, str]:
+    """Compile one kernel library if it is missing. Returns (path, the
+    compiler's resource report, empty when the library was already
+    built)."""
+    out = library_path(name)
+    if out.exists():
+        return out, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out, proc.stdout + proc.stderr
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel library at once (one nvcc per source)."""
+    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+        results = list(pool.map(build, KERNELS))
+    return {name: report for name, (_, report) in zip(KERNELS, results)}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_fn(name: str):
+    """The loaded C entry point of kernel ``name`` (built on first use)."""
+    path, _ = build(name)
+    lib = ctypes.CDLL(str(path))
+    symbol, argtypes = SIGNATURES[name]
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {code}")

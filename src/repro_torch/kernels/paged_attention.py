@@ -1,0 +1,129 @@
+"""Decode attention over KV pages: the Hopper kernel
+``csrc/paged_attention.cu`` and its plain PyTorch version.
+
+Counterpart of ``repro.kernels.paged_attention.paged_attention_pallas``
+(bf16/f32 pages; the int8 pages with per-token scales are not ported yet):
+one query token per sequence ``(B, H, D)`` against a page pool
+``(P, page, K, D)`` reached through an int32 block table ``(B, pps)``;
+positions at or past ``lengths`` are masked, and the kernel never loads
+them. Online softmax in f32, output in q's dtype.
+
+:func:`paged_attention` launches the kernel on CUDA tensors and runs
+:func:`paged_attention_plain` on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import DTYPE_CODES, SUPPORTED_HEAD_DIMS
+
+#: Shared memory a CTA may use on sm_90 (bytes).
+MAX_SMEM = 232_448
+_TILE = 64  # cache positions per kernel tile
+
+
+def paged_attention_plain(
+    q: torch.Tensor,  # (B, H, D)
+    k_pages: torch.Tensor,  # (P, page, K, D)
+    v_pages: torch.Tensor,  # (P, page, K, D)
+    block_tables: torch.Tensor,  # (B, pps) int32
+    lengths: torch.Tensor,  # (B,) int32
+) -> torch.Tensor:
+    """Gathers each sequence's pages and runs masked softmax in f32."""
+    b, h, d = q.shape
+    _, page, n_kv, _ = k_pages.shape
+    pps = block_tables.shape[1]
+    g = h // n_kv
+    idx = block_tables.long()
+    kg = k_pages[idx].reshape(b, pps * page, n_kv, d).float()
+    vg = v_pages[idx].reshape(b, pps * page, n_kv, d).float()
+    qg = q.reshape(b, n_kv, g, d).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, kg) * (1.0 / math.sqrt(d))
+    pos = torch.arange(pps * page, device=q.device)
+    valid = pos[None, :] < lengths.to(q.device)[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, vg)
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def smem_bytes(h: int, n_kv: int, d: int) -> int:
+    """Dynamic shared memory one CTA of the kernel asks for."""
+    g = h // n_kv
+    return 4 * (2 * g * d + 2 * _TILE * (d + 1) + g * _TILE + 3 * g)
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
+    dev = q.device
+    tensors = (k_pages, v_pages, block_tables, lengths)
+    if not (q.is_cuda and all(t.device == dev for t in tensors)):
+        raise ValueError("all paged_attention operands must lie on one CUDA device")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    if k_pages.dtype not in DTYPE_CODES or v_pages.dtype != k_pages.dtype:
+        raise TypeError(
+            f"pages must be float32 or bfloat16 of one dtype, got "
+            f"{k_pages.dtype}, {v_pages.dtype}"
+        )
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("block_tables and lengths must be int32")
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(
+            f"expected q (B,H,D) and pages (P,page,K,D), got "
+            f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}"
+        )
+    b, h, d = q.shape
+    _, page, n_kv, kd = k_pages.shape
+    if kd != d or n_kv == 0 or h % n_kv or page == 0:
+        raise ValueError(
+            f"incompatible shapes q {tuple(q.shape)}, pages {tuple(k_pages.shape)}"
+        )
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or block_tables.shape[1] == 0:
+        raise ValueError(f"block_tables must be (B, pps), got {tuple(block_tables.shape)}")
+    if lengths.shape != (b,):
+        raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
+    if smem_bytes(h, n_kv, d) > MAX_SMEM:
+        raise ValueError(f"G={h // n_kv}, D={d} needs more shared memory than a CTA has")
+    if not all(t.is_contiguous() for t in (q, *tensors)):
+        raise ValueError("paged_attention needs contiguous operands")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention needs 16-byte aligned pages")
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    lengths: torch.Tensor,
+) -> torch.Tensor:
+    """Decode attention over pages: the kernel on CUDA, the plain version
+    on the CPU. Block-table entries are trusted to name pages of the pool;
+    a length past ``pps * page`` counts as ``pps * page``."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, block_tables, lengths)
+    _check(q, k_pages, v_pages, block_tables, lengths)
+    b, h, d = q.shape
+    _, page, n_kv, _ = k_pages.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    fn = _build.kernel_fn("paged_attention")
+    code = fn(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, h, n_kv, d, page, block_tables.shape[1], 1.0 / math.sqrt(d),
+        DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check("paged_attention", code)
+    paged_attention.launches += 1
+    return out
+
+
+#: Kernel launches since the last reset (plain-version calls not counted).
+paged_attention.launches = 0

@@ -1,0 +1,85 @@
+"""Shared neural building blocks (counterpart of ``repro.models.layers``).
+
+bf16 compute with f32 accumulation, as in the reference. Attention goes
+through :mod:`repro_torch.kernels.ops`: prefill to the flash kernel, decode
+to the paged kernel over the slot cache viewed as pages.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm with the reference's ``(1 + w)`` scaling, computed in f32."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * (1.0 + weight.float())).to(x.dtype)
+
+
+def mlp(x: torch.Tensor, params: dict, activation: str) -> torch.Tensor:
+    """Gated (swiglu/geglu) or plain (gelu) feed-forward."""
+    if activation in ("swiglu", "geglu"):
+        gate = x @ params["w_gate"]
+        up = x @ params["w_up"]
+        act = F.silu(gate) if activation == "swiglu" else F.gelu(gate, approximate="tanh")
+        hidden = act * up
+    elif activation == "gelu":
+        hidden = F.gelu(x @ params["w_up"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return hidden @ params["w_down"]
+
+
+def rope_angles(
+    positions: torch.Tensor, head_dim: int, theta: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions (..., L) → cos/sin (..., L, head_dim/2) in f32."""
+    half = head_dim // 2
+    exponents = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exponents)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotary embedding; x (..., L, H, D), cos/sin (..., L, D/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    c = cos[..., None, :] if cos.dim() == x.dim() - 1 else cos
+    s = sin[..., None, :] if sin.dim() == x.dim() - 1 else sin
+    out1 = x1 * c - x2 * s
+    out2 = x2 * c + x1 * s
+    return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Lq, H, D)
+    k: torch.Tensor,  # (B, Lk, K, D)
+    v: torch.Tensor,  # (B, Lk, K, D)
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Prefill attention, any length (the reference's chunked jnp version
+    needs L to divide its 512-token chunk)."""
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, K, D)
+    v_cache: torch.Tensor,  # (B, S, K, D)
+    cur_len: torch.Tensor | int,  # valid cache length (scalar or (B,))
+) -> torch.Tensor:
+    """One-step attention over the slot cache; positions ≥ cur_len are
+    masked (and never read by the kernel)."""
+    b = q.shape[0]
+    if isinstance(cur_len, int):
+        lengths = torch.full((b,), cur_len, dtype=torch.int32, device=q.device)
+    else:
+        lengths = cur_len.to(device=q.device, dtype=torch.int32).expand(b).contiguous()
+    return ops.slot_decode_attention(q, k_cache, v_cache, lengths)

@@ -1,0 +1,216 @@
+"""Attention-transformer assembly, dense family (counterpart of
+``repro.models.transformer``).
+
+Covers the dense llama-style stack the reference shares with yi-6b,
+granite-3-8b, granite-34b, gemma-2b and llama3-70b: RMS norm, GQA
+self-attention with half-split RoPE, gated or plain MLP, bf16 KV cache. The layer
+stack is a Python loop over the stacked ``blocks`` parameters (the
+reference ``lax.scan``s over them). MoE, cross-attention, M-RoPE and the
+int8 KV cache are later slices.
+
+Decode updates the KV cache tensors in place (the reference returns new
+arrays); the caches it returns are the ones it was given.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import heads as heads_lib
+from repro_torch.models.layers import (
+    apply_rope,
+    decode_attention,
+    flash_attention,
+    mlp,
+    rms_norm,
+    rope_angles,
+)
+from repro_torch.models.params import ParamDef, stack_tree
+
+# ---------------------------------------------------------------------------
+# Parameter declarations
+# ---------------------------------------------------------------------------
+
+
+def attention_defs(cfg: ArchConfig) -> dict:
+    h, k, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    return {
+        "attn_norm": ParamDef((d,), ("embed",), init="zeros", dtype=torch.float32),
+        "w_q": ParamDef((d, h, dh), ("embed", "heads", "head_dim"), init="scaled"),
+        "w_k": ParamDef((d, k, dh), ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "w_v": ParamDef((d, k, dh), ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "w_o": ParamDef((h, dh, d), ("heads", "head_dim", "embed"), init="scaled"),
+    }
+
+
+def mlp_defs(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    defs = {
+        "mlp_norm": ParamDef((d,), ("embed",), init="zeros", dtype=torch.float32),
+        "w_up": ParamDef((d, f), ("embed", "ffn"), init="scaled"),
+        "w_down": ParamDef((f, d), ("ffn", "embed"), init="scaled"),
+    }
+    if cfg.activation in ("swiglu", "geglu"):
+        defs["w_gate"] = ParamDef((d, f), ("embed", "ffn"), init="scaled")
+    return defs
+
+
+def check_dense(cfg: ArchConfig) -> None:
+    """Raise for what the dense path of this slice does not cover."""
+    if cfg.family != "dense" or cfg.is_moe or cfg.cross_attention:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            "(ROADMAP.md, queue A, item A9)"
+        )
+    if cfg.pos_type != "rope" or cfg.frontend != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: pos_type {cfg.pos_type!r} / frontend "
+            f"{cfg.frontend!r} are not ported yet (ROADMAP.md, A9)"
+        )
+    if cfg.n_codebooks > 0:
+        raise NotImplementedError(f"{cfg.name}: codebook heads are not ported yet")
+
+
+def transformer_defs(cfg: ArchConfig) -> dict:
+    """Full parameter tree for a dense attention architecture."""
+    check_dense(cfg)
+    d, v = cfg.d_model, cfg.padded_vocab
+    defs: dict[str, Any] = {
+        "embed": ParamDef((v, d), ("vocab", "embed"), init="normal"),
+        "blocks": stack_tree({**attention_defs(cfg), **mlp_defs(cfg)}, cfg.n_layers),
+        "final_norm": ParamDef((d,), ("embed",), init="zeros", dtype=torch.float32),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"), init="scaled")
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Sublayers
+# ---------------------------------------------------------------------------
+
+
+def _layers(params: dict) -> list[dict]:
+    """Per-layer views of the stacked ``blocks`` parameters."""
+    per_key = {k: t.unbind(0) for k, t in params["blocks"].items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: views[i] for k, views in per_key.items()} for i in range(n)]
+
+
+def _project_qkv(x: torch.Tensor, p: dict):
+    b, l, d = x.shape
+    q = (x @ p["w_q"].reshape(d, -1)).view(b, l, *p["w_q"].shape[1:])
+    k = (x @ p["w_k"].reshape(d, -1)).view(b, l, *p["w_k"].shape[1:])
+    v = (x @ p["w_v"].reshape(d, -1)).view(b, l, *p["w_v"].shape[1:])
+    return q, k, v
+
+
+def _out_proj(o: torch.Tensor, p: dict) -> torch.Tensor:
+    b, l = o.shape[:2]
+    w_o = p["w_o"]
+    return o.reshape(b, l, -1) @ w_o.reshape(-1, w_o.shape[-1])
+
+
+def _self_attention_full(x, p, cos, sin, cfg: ArchConfig):
+    """Train/prefill self-attention over the whole sequence."""
+    xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(xn, p)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    o = flash_attention(q, k, v, causal=True)
+    return x + _out_proj(o, p), (k, v)
+
+
+def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, k_cache, v_cache, rows, write, lengths):
+    """Single-token decode: write this token's K/V at ``write`` in place,
+    then attend over the first ``lengths`` positions of each slot."""
+    xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q, k, v = _project_qkv(xn, p)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    k_cache[rows, write] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, write] = v[:, 0].to(v_cache.dtype)
+    o = decode_attention(q, k_cache, v_cache, lengths)
+    return x + _out_proj(o, p)
+
+
+def _mlp_sublayer(x, p, cfg: ArchConfig):
+    return x + mlp(rms_norm(x, p["mlp_norm"], cfg.norm_eps), p, cfg.activation)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model passes
+# ---------------------------------------------------------------------------
+
+
+def _embed_input(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.tie_embeddings:  # gemma-style sqrt(d) scaling
+        x = x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt().to(x.device)
+    return x
+
+
+def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    vv = cfg.vocab if cfg.padded_vocab != cfg.vocab else None
+    if cfg.tie_embeddings:
+        return heads_lib.lm_logits(x, params["embed"], tied=True, valid_vocab=vv)
+    return heads_lib.lm_logits(x, params["lm_head"], valid_vocab=vv)
+
+
+def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
+    """Embedding + every layer over the whole sequence → (x, [(k, v)])."""
+    x = _embed_input(params, cfg, tokens)
+    b, length = tokens.shape
+    pos = torch.arange(length, device=x.device).expand(b, length)
+    cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+    kvs = []
+    for p in _layers(params):
+        x, kv = _self_attention_full(x, p, cos, sin, cfg)
+        x = _mlp_sublayer(x, p, cfg)
+        kvs.append(kv)
+    return x, kvs
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits (B, L, V), aux_loss)."""
+    x, _ = _run_full(params, cfg, batch["tokens"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def prefill(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, tuple]:
+    """Prefill pass → (last-position logits (B, V), (k, v) caches stacked
+    over layers, each (n_layers, B, L, K, D))."""
+    x, kvs = _run_full(params, cfg, batch["tokens"])
+    # "last_pos" supports right-padded prompts (serving buckets): logits are
+    # taken at the true last prompt token, not the padded end.
+    if "last_pos" in batch:
+        last = torch.as_tensor(batch["last_pos"], device=x.device).long()
+        x = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+    else:
+        x = x[:, -1:]
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _head(params, cfg, x)
+    caches = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+    return logits[:, 0], caches
+
+
+def decode_step(params: dict, cfg: ArchConfig, caches: tuple, batch: dict) -> tuple[torch.Tensor, tuple]:
+    """One decode iteration. ``batch["index"]`` is the write position, a
+    scalar or one per sequence; caches are ``(k, v)``, each
+    ``(n_layers, B, S, K, D)``, and are updated in place."""
+    k_all, v_all = caches
+    x = _embed_input(params, cfg, batch["tokens"])
+    b = x.shape[0]
+    index = torch.as_tensor(batch["index"], device=x.device).long().expand(b)
+    cos, sin = rope_angles(index[:, None], cfg.head_dim, cfg.rope_theta)
+    lengths = (index + 1).to(torch.int32)
+    # the reference's dynamic_update_slice clamps the write into the cache
+    write = index.clamp(max=k_all.shape[2] - 1)
+    rows = torch.arange(b, device=x.device)
+    for i, p in enumerate(_layers(params)):
+        x = _self_attention_decode(x, p, cos, sin, cfg, k_all[i], v_all[i], rows, write, lengths)
+        x = _mlp_sublayer(x, p, cfg)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head(params, cfg, x)[:, 0], caches
