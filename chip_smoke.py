@@ -18,7 +18,19 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 4. profiles ten decode steps of the short pool with all slots busy (step
    time, the device's busy share, kernels by device time), and holds one
    request's decode-step logits against a full ``forward`` recompute;
-5. prints the kernels' JSON line, the card's name and power limit, and last
+5. the fleet DES (``FleetSim(backend="torch", device="cuda")``) on the
+   paper's Table-2 fleet: an Azure trace at 1,000 req/s (seed 0),
+   B_short 8192, the A100/Llama-3-70B timing model, short pool c_max 8192
+   and long pool c_max 65,536 sized by ``plan_fleet``, spillover off. It
+   holds the ``sim_decode`` kernel against its plain version bit for bit at
+   that fleet's stacked shapes (idle rows, ``t_limit = inf``, truncation at
+   c_max, KV growth past the free blocks) and times both; runs the routed
+   and the homogeneous fleet through the kernel (its launch counter set to
+   0 just before the routed run and read just after; it must be > 0); and
+   runs a shorter routed trace on the card and on the CPU, whose records
+   and loop counters must be equal bit for bit; and profiles a short
+   routed run (device busy share, kernels per round);
+6. prints the kernels' JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -40,6 +52,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.cost_model import closed_form_savings  # noqa: E402
+from repro_torch.core.pools import (  # noqa: E402
+    PoolConfig,
+    homogeneous_pool,
+    n_seq_for_cmax,
+)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
@@ -49,11 +67,22 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
 )
+from repro_torch.kernels.sim_decode import (  # noqa: E402
+    OUTPUTS,
+    decode_advance,
+    decode_advance_plain,
+    random_state,
+)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.serving import ServeRequest, ServingEngine  # noqa: E402
+from repro_torch.sim import A100_LLAMA3_70B, FleetSim, plan_fleet  # noqa: E402
+from repro_torch.sim import torch_engine  # noqa: E402
+from repro_torch.traces import TraceSpec, generate_trace_columns  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate and HBM3.
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, the
+# float32 rate outside the tensor cores, and HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # bf16 outputs of the kernel and its plain version both round an f32
 # result; at |o| < 4 a bf16 ulp is 2**-6, so 2e-2 allows about one ulp plus
@@ -70,6 +99,20 @@ SERVE = dict(
     arch="yi-6b", requests=16, short_cmax=512, long_cmax=2048,
     short_slots=8, long_slots=2, seed=0, full_width=True,
 )
+
+# The paper's Table 2 fleet (1,000 req/s, B_short = 8192) on the DES.
+# ``requests`` is the routed and homogeneous runs' trace length, ``cross``
+# the CUDA-against-CPU trace's, ``profile`` the profiled run's.
+DES = dict(trace="azure", rate=1000.0, seed=0, b_short=8192, requests=10_000, cross=2_000,
+           profile=1_000)
+# sim_decode's bytes per slot and per (pool, instance) row, from the dtypes:
+# in occ 1, pre sq inp gen rem blk 4 each, ft 8, tr 1; out pre gen rem 4
+# each, ft 8, dec trunc_new tr comp 1 each; rows in busy 1, now 8, nact
+# free 4 each, out k 4, end 8. About 40 integer and float operations per
+# slot, counted at the float32 rate outside the tensor cores.
+SIM_DECODE_SLOT_BYTES = (1 + 6 * 4 + 8 + 1, 3 * 4 + 8 + 4 * 1)
+SIM_DECODE_ROW_BYTES = (1 + 8 + 4 + 4, 4 + 8)
+SIM_DECODE_SLOT_OPS = 40
 
 
 def fail(msg: str) -> None:
@@ -96,8 +139,8 @@ def time_ms(fn, *, iters: int = 20, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -314,6 +357,199 @@ def logits_check(srv) -> float:
     return r["rel_l2"]
 
 
+# ---------------------------------------------------------------------------
+# The fleet DES: the sim_decode kernel and the torch tier on the card
+# ---------------------------------------------------------------------------
+
+
+def des_setup():
+    """The Table-2 trace, the fleet plan and the two fleets it sizes."""
+    cols = generate_trace_columns(TraceSpec(
+        trace=DES["trace"], num_requests=DES["requests"], rate=DES["rate"], seed=DES["seed"],
+    ))
+    plan = plan_fleet(DES["trace"], cols.to_requests(), A100_LLAMA3_70B, DES["rate"],
+                      b_short=DES["b_short"])
+    routed = {
+        "short": (PoolConfig("short", DES["b_short"], n_seq_for_cmax(DES["b_short"]),
+                             headroom=1.05), plan.short.instances),
+        "long": (PoolConfig("long", 65_536, 16, headroom=1.02), plan.long.instances),
+    }
+    homo = {"homogeneous": (homogeneous_pool(), plan.g_homo)}
+    print(f"[des] Table 2 plan ({DES['trace']}, {DES['rate']:.0f} req/s, B_short "
+          f"{DES['b_short']}, {DES['requests']} requests, seed {DES['seed']}): homogeneous "
+          f"{plan.g_homo}, short {plan.short.instances} x {routed['short'][0].n_seq} slots, "
+          f"long {plan.long.instances} x 16 slots, dual {plan.g_dual}; savings "
+          f"{plan.savings:.4f} (the naive Eq. 7 closed form, which assumes the long pool "
+          f"keeps the homogeneous throughput, over-predicts: {closed_form_savings(plan.alpha, plan.rho):.4f})",
+          flush=True)
+    return cols, plan, routed, homo
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def sim_decode_phase(dev, flush, shape: tuple[int, int, int], c_max: list[int]) -> dict:
+    """The kernel against its plain version on the card, bit for bit on all
+    ten outputs, at the routed fleet's stacked ``(P, I, S)`` shape; both
+    timed on the first state."""
+    P, I, S = shape
+    row = {}
+    for seed, t_limit in ((0, None), (1, math.inf), (2, None)):
+        st = random_state(seed, c_max, I, S, t_limit=t_limit, device=dev)
+        args = [st[k] for k in ("t_limit", "busy", "now", "nact", "free", "occ", "pre",
+                                "sq", "inp", "gen", "rem", "blk", "ft", "tr", "c_max")]
+        kw = dict(w=A100_LLAMA3_70B.w_base, h=A100_LLAMA3_70B.h_per_seq,
+                  chunk=A100_LLAMA3_70B.prefill_chunk)
+        got = decode_advance(*args, **kw)
+        torch.cuda.synchronize()
+        want = decode_advance_plain(*args, **kw)
+        err = 0.0
+        for k in OUTPUTS:
+            a, b = got[k], want[k]
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+                fail(f"sim_decode seed {seed}: output {k} differs from the plain version")
+            if a.dtype == torch.float64:
+                err = max(err, (a - b).nan_to_num(0.0).abs().max().item())
+        idle = int((~st["busy"] & (st["nact"] > 0)).sum())
+        over = int((st["busy"] & (st["free"] == 0) & (got["k"] == 1)).sum())
+        trunc = int(got["trunc_new"].sum())
+        if not (idle and over and trunc):
+            fail(f"sim_decode seed {seed}: state lacks idle ({idle}), overflow ({over}) "
+                 f"or truncating ({trunc}) rows")
+        print(f"[sim_decode] (P, I, S) = {shape} seed {seed} t_limit "
+              f"{'inf' if t_limit else 'finite'}: 10 outputs bit-identical to the plain "
+              f"version; idle rows {idle}, overflow rows {over}, truncations {trunc}", flush=True)
+        if not row:
+            slots, rows = P * I * S, P * I
+            nbytes = slots * sum(SIM_DECODE_SLOT_BYTES) + rows * sum(SIM_DECODE_ROW_BYTES) + 8 + 4 * P
+            bnd, by = bound_ms(nbytes, slots * SIM_DECODE_SLOT_OPS, PEAK_F32_FLOPS)
+            row = dict(
+                shape=shape, max_abs_err=err,
+                ms=time_ms(lambda: decode_advance(*args, **kw), flush=flush),
+                plain_ms=time_ms(lambda: decode_advance_plain(*args, **kw), flush=flush),
+                bound_ms=bnd, bound_by=by,
+            )
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+    print(f"[sim_decode] kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
+          f"{row['bound_ms']:.5f} ms ({row['bound_by']}); no single PyTorch call computes "
+          f"this round", flush=True)
+    return row
+
+
+def run_des(pools, cols, dev, *, label: str) -> dict:
+    """One fleet run through ``backend="torch"``; prints what the paper's
+    tables read and the loop's counters."""
+    sim = FleetSim(pools, A100_LLAMA3_70B, b_short=DES["b_short"], backend="torch",
+                   device=dev, spillover=False)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sim.run(cols)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = torch_engine.last_run_stats()
+    s = res.summary
+    n = len(cols)
+    if not 0 < stats["iters"] <= n + 1 or stats["rounds"] < stats["iters"]:
+        fail(f"{label}: loop counters {stats} out of bounds for n={n}")
+    if s.completed + s.rejected != s.num_requests or s.completed == 0:
+        fail(f"{label}: {s.completed} completed + {s.rejected} rejected != {s.num_requests}")
+    if not (math.isfinite(s.ttft_p99) and math.isfinite(s.tpot_p99)):
+        fail(f"{label}: non-finite latency percentiles")
+    routed = res.router_stats.get("routed", {name: n for name in pools})
+    if sum(routed.values()) != n:
+        fail(f"{label}: {sum(routed.values())} routing decisions for {n} requests")
+    fractions = {k: round(v / n, 4) for k, v in routed.items()}
+    print(f"[des] {label} on {dev.type}: {n} requests, {sum(c for _, c in pools.values())} "
+          f"instances; completed {s.completed} rejected {s.rejected} preempted "
+          f"{res.preemptions} truncated {s.truncated} (of {s.num_requests} after warm-up); "
+          f"TTFT p99 {s.ttft_p99:.4f} s TPOT p99 {s.tpot_p99:.4f} s, meets SLO "
+          f"{res.meets_slo()}; routing {fractions}; iters {stats['iters']} rounds "
+          f"{stats['rounds']} host syncs {stats['host_syncs']}; {wall:.2f} s wall, "
+          f"{n / wall:.1f} simulated requests per wall second", flush=True)
+    return dict(sim=sim, res=res, stats=stats, wall_s=wall)
+
+
+def record_columns(sim) -> dict:
+    return {name: pool.record_arrays() for name, pool in sim.pools.items()}
+
+
+def des_phase(dev, flush) -> dict:
+    cols, plan, routed, homo = des_setup()
+    n_short = routed["short"][0].n_seq
+    shape = (2, max(plan.short.instances, plan.long.instances), max(n_short, 16))
+    kernel = sim_decode_phase(dev, flush, shape, [DES["b_short"], 65_536])
+
+    decode_advance.launches = 0
+    run_des(routed, cols, dev, label="routed Table-2 fleet")
+    launches = decode_advance.launches
+    print(f"[des] sim_decode launches on the routed run: {launches}", flush=True)
+    if launches == 0:
+        fail("sim_decode was never launched on the DES path")
+    decode_advance.launches = 0
+    run_des(homo, cols, dev, label="homogeneous fleet")
+    if decode_advance.launches == 0:
+        fail("sim_decode was never launched on the homogeneous run")
+    print(f"[des] instances homogeneous {plan.g_homo} vs token-budget {plan.g_dual}: "
+          f"savings {plan.savings:.4f}", flush=True)
+
+    short = generate_trace_columns(TraceSpec(
+        trace=DES["trace"], num_requests=DES["cross"], rate=DES["rate"], seed=DES["seed"],
+    ))
+    on_card = run_des(routed, short, dev, label=f"routed, n={DES['cross']}")
+    on_cpu = run_des(routed, short, torch.device("cpu"), label=f"routed, n={DES['cross']}")
+    for key in ("iters", "rounds"):
+        if on_card["stats"][key] != on_cpu["stats"][key]:
+            fail(f"CUDA and CPU runs differ in {key}: {on_card['stats']} vs {on_cpu['stats']}")
+    a, b = record_columns(on_card["sim"]), record_columns(on_cpu["sim"])
+    for pool in a:
+        for col, va in a[pool].items():
+            vb = b[pool][col]
+            if va.dtype != vb.dtype or va.tobytes() != vb.tobytes():
+                fail(f"CUDA and CPU runs differ in {pool}.{col}")
+    print(f"[des] n={DES['cross']}: CUDA and CPU records bit-identical "
+          f"({sum(len(v['request_id']) for v in a.values())} rows), iters/rounds "
+          f"{on_card['stats']['iters']}/{on_card['stats']['rounds']} on both", flush=True)
+    profile_des(routed, dev)
+    return dict(kernel=kernel, launches=launches)
+
+
+def profile_des(pools, dev) -> dict:
+    """Where a DES round's time goes on the card: the routed fleet on a
+    ``DES["profile"]``-request trace under torch.profiler. Returns the wall
+    and device time per round, the device's busy share of the wall and the
+    kernels by device time (the profiler's own cost is in the wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cols = generate_trace_columns(TraceSpec(
+        trace=DES["trace"], num_requests=DES["profile"], rate=DES["rate"], seed=DES["seed"],
+    ))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run = run_des(pools, cols, dev, label="routed, profiled")
+    rounds = run["stats"]["rounds"]
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    wall_ms = run["wall_s"] * 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    out = dict(
+        round_ms=wall_ms / rounds, device_ms_per_round=busy_ms / rounds,
+        busy_share=busy_ms / wall_ms, kernels_per_round=sum(e.count for e in kernels) / rounds,
+    )
+    print(f"[des-profile] {rounds} rounds: {out['round_ms']:.3f} ms of wall and "
+          f"{1e3 * out['device_ms_per_round']:.1f} us of device time per round, "
+          f"{out['kernels_per_round']:.1f} kernels per round; device busy "
+          f"{100 * out['busy_share']:.2f}% of the wall")
+    for e in top:
+        print(f"[des-profile]   {e.self_device_time_total / rounds:8.2f} us/round "
+              f"{e.count / rounds:6.2f}/round  {e.key[:70]}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -341,10 +577,14 @@ def main() -> None:
     served = serve_phase()
     profile_decode(served["server"])
     logits_check(served["server"])
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    des = des_phase(dev, flush)
+    del flush
 
-    # The JSON line carries each kernel at the serving path's shapes: the
-    # largest prompt bucket (L=256) and the short pool's decode.
-    f, p = flash_rows[256], paged_rows["short"]
+    # The JSON line carries each kernel at its path's shapes: the largest
+    # prompt bucket (L=256), the short pool's decode, the Table-2 fleet's
+    # stacked slot arrays.
+    f, p, d = flash_rows[256], paged_rows["short"], des["kernel"]
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention.cu",
@@ -358,6 +598,12 @@ def main() -> None:
              launches=served["launches"]["paged_attention"],
              max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
              bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=p["library_ms"]),
+        dict(name="sim_decode", route="cuda",
+             source="src/repro_torch/csrc/sim_decode.cu",
+             replaces="src/repro/kernels/sim_decode.py:243",
+             launches=des["launches"], max_abs_err=d["max_abs_err"], ms=d["ms"],
+             plain_ms=d["plain_ms"], bound_ms=d["bound_ms"], bound_by=d["bound_by"],
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

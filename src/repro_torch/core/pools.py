@@ -121,8 +121,8 @@ class PoolSet:
 
     Pools are sorted by ``C_max`` at construction (stable, so equal-capacity
     pools keep caller order); ``thresholds`` stays a mutable array because
-    the adaptive controller moves boundaries at runtime (the reference
-    package's ``core/adaptive.py``; not yet ported).
+    the adaptive controller moves boundaries at runtime
+    (:class:`repro_torch.core.adaptive.AdaptiveController`).
     """
 
     def __init__(

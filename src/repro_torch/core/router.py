@@ -1,10 +1,17 @@
 """Token-budget pool dispatch (paper §2.2, Algorithm 1), N-pool form.
 
-Counterpart of the host-side router in ``repro.core.router``. The router
-never needs a tokenizer: the byte length |r| plus the calibrated
-per-category ratio gives the input-token estimate, and the request's own
-``max_output_tokens`` cap gives the output term. The batch routing kernels
-belong to the fleet-simulator slice of the port.
+Counterpart of ``repro.core.router``. The router never needs a tokenizer:
+the byte length |r| plus the calibrated per-category ratio gives the
+input-token estimate, and the request's own ``max_output_tokens`` cap gives
+the output term.
+
+Two paths:
+
+* :class:`TokenBudgetRouter` — host-side production dispatch (scalar).
+* :func:`route_batch` — routing of a whole request batch on tensors (the
+  counterpart of ``jax_route_batch``), used by the vectorized fleet
+  simulator; :func:`pool_ids` is the threshold search it shares with the
+  torch DES tier's in-loop dispatch.
 """
 
 from __future__ import annotations
@@ -12,9 +19,17 @@ from __future__ import annotations
 import dataclasses
 import math
 from bisect import bisect_left
-from typing import Optional
+from typing import Optional, Sequence
 
-from repro_torch.core.calibration import EmaCalibrator
+import numpy as np
+import torch
+
+from repro_torch.core.calibration import (
+    DEFAULT_GAMMA,
+    CalibState,
+    EmaCalibrator,
+    estimate_budget,
+)
 from repro_torch.core.pools import PoolSet, PoolState
 
 
@@ -133,6 +148,47 @@ class TokenBudgetRouter:
     def on_response(self, request: Request, prompt_tokens: int) -> None:
         self.calibrator.observe(request.byte_len, prompt_tokens, request.category)
 
+    def on_response_batch(self, byte_lens, prompt_tokens, categories) -> None:
+        """Epoch-batched feedback: fold many responses through the EMA at
+        once (vectorized fleet backend / trace re-simulation)."""
+        self.calibrator.observe_batch(byte_lens, prompt_tokens, categories)
+
+    def route_decided(
+        self, pool_id: int, budget: int, blocked: Optional[frozenset] = None
+    ) -> str:
+        """Finalize one batched decision against live pool state: the
+        load-dependent tail of Algorithm 1 (hard-constraint escalation and
+        spillover) for a static pool index from :meth:`route_batch`,
+        updating the routed/spill counters like :meth:`route`. Returns the
+        target pool name."""
+        idx, _ = self._finalize(int(pool_id), int(budget), blocked)
+        name = self.pools.names[idx]
+        self.routed[name] += 1
+        return name
+
+    # -- batch dispatch (vectorized fleet backend) ---------------------------
+    def route_batch(self, byte_lens, max_output_tokens, categories):
+        """Route a whole arrival batch with :func:`route_batch`.
+
+        Returns ``(pool_ids, budgets)`` as NumPy int32 arrays of length
+        ``len(byte_lens)``; pool ids index the budget-ordered PoolSet
+        (0 = smallest budget). The static decision uses the calibrator
+        state as of the call; spillover and the routed/spill counters stay
+        with the caller (:meth:`route_decided`). The reference pads the
+        batch to a power of two for JAX's shape cache and slices the pad
+        rows off; eager PyTorch needs no padding, so no pad row can reach
+        the counters or the EMA feedback.
+        """
+        pools, budgets = route_batch(
+            self.calibrator.to_state(),
+            torch.as_tensor(np.asarray(byte_lens)).to(torch.int32),
+            torch.as_tensor(np.asarray(max_output_tokens)).to(torch.int32),
+            torch.as_tensor(np.asarray(categories)).to(torch.int32),
+            thresholds=self.pools.thresholds,
+            gamma=self.calibrator.gamma,
+        )
+        return pools.numpy(), budgets.numpy()
+
     # -- observability -------------------------------------------------------
     def stats(self) -> dict:
         total = max(1, sum(self.routed.values()))
@@ -149,3 +205,44 @@ class TokenBudgetRouter:
             out["routed_long"] = self.routed[last]
             out["short_fraction"] = self.routed[first] / total
         return out
+
+
+# ---------------------------------------------------------------------------
+# Batch routing on tensors
+# ---------------------------------------------------------------------------
+
+def pool_ids(thresholds: torch.Tensor, budgets: torch.Tensor) -> torch.Tensor:
+    """Budget → pool-index dispatch: ``searchsorted`` over ``B_1 < … <
+    B_{P-1}`` (Algorithm 1's static threshold search, left side), int32 ids
+    into the budget-ordered pool family. Counterpart of ``jax_pool_ids``;
+    shared by :func:`route_batch` and the torch DES tier's dispatch."""
+    return torch.searchsorted(thresholds, budgets, right=False).to(torch.int32)
+
+
+def route_batch(
+    state: CalibState,
+    byte_lens: torch.Tensor,
+    max_output_tokens: torch.Tensor,
+    categories: torch.Tensor,
+    *,
+    thresholds: Optional[Sequence[int]] = None,
+    short_cmax: int = 8192,
+    b_short: int = 8192,
+    gamma: float = DEFAULT_GAMMA,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Route a whole batch at once. Returns (pool_ids, estimated_budgets),
+    both int32; counterpart of ``jax_route_batch``.
+
+    The budget is Eq. 3 with the float32 L_in estimate of
+    :func:`repro_torch.core.calibration.estimate_budget`; pool ids are
+    ``searchsorted`` over ``thresholds`` (default: the two-pool boundary
+    ``min(b_short, short_cmax)``). Spillover is a load-dependent runtime
+    concern and is not part of the static decision.
+    """
+    if thresholds is None:
+        thresholds = [min(b_short, short_cmax)]
+    th = torch.as_tensor(np.asarray(thresholds, dtype=np.int32))
+    budgets = estimate_budget(
+        state, byte_lens, max_output_tokens, categories, gamma=gamma
+    )
+    return pool_ids(th, budgets), budgets

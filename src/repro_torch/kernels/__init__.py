@@ -5,6 +5,9 @@
 * ``paged_attention`` — decode attention over KV pages
   (``csrc/paged_attention.cu``), replacing
   ``repro.kernels.paged_attention.paged_attention_pallas``.
+* ``sim_decode`` — the fleet DES's fused decode-advance round
+  (``csrc/sim_decode.cu``), replacing
+  ``repro.kernels.sim_decode.decode_advance_pallas``.
 
 The CUDA sources are compiled on first use (``_build``); CPU tensors take
 the plain PyTorch versions.

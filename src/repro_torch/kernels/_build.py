@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("flash_attention", "paged_attention")
+KERNELS = ("flash_attention", "paged_attention", "sim_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 #: ctypes signatures of the exported C entry points.
 SIGNATURES = {
@@ -45,6 +46,13 @@ SIGNATURES = {
         # q, k_pages, v_pages, block_tables, lengths, o,
         # B, H, KH, D, page, pps, scale, q_dtype, kv_dtype, stream
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    ),
+    "sim_decode": (
+        "sim_decode_advance",
+        # t_limit, busy, now, nact, free, occ, pre, sq, inp, gen, rem, blk,
+        # ft, tr, c_max; outputs pre, dec, k, end, gen, rem, ft, trunc_new,
+        # tr, comp; P, I, S, w, h, chunk, stream
+        [_P] * 25 + [_I, _I, _I, _D, _D, _I, _P],
     ),
 }
 

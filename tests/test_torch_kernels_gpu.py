@@ -1,4 +1,5 @@
-"""The port's Hopper kernels against their plain versions, on the card.
+"""The port's Hopper kernels against their plain versions, on the card,
+and the torch DES tier on the card against its CPU run.
 
 Every test here is marked ``cuda`` and skips without a GPU (the CUDA
 kernels have no CPU mode). The file imports neither jax nor the reference
@@ -21,6 +22,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
+)
+from repro_torch.kernels.sim_decode import (  # noqa: E402
+    OUTPUTS,
+    decode_advance,
+    decode_advance_plain,
+    random_state,
 )
 
 pytestmark = pytest.mark.cuda
@@ -125,3 +132,117 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 64, 64, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q, causal=False)
+
+
+SIM_DECODE_ARGS = ("t_limit", "busy", "now", "nact", "free", "occ", "pre", "sq", "inp",
+                   "gen", "rem", "blk", "ft", "tr", "c_max")
+SIM_DECODE_CASES = [
+    # (c_max per pool, instances, slots, t_limit, timing (w, h))
+    ([8192, 65_536], 224, 128, None, (8.0e-3, 0.65e-3)),  # Table-2 fleet shapes
+    ([8192, 65_536], 224, 128, math.inf, (8.0e-3, 0.65e-3)),
+    ([1024, 2048, 4096], 6, 16, None, (2**-10, 2**-13)),
+    ([2048], 5, 200, None, (8.0e-3, 0.65e-3)),  # more slots than threads
+    ([4096], 3, 8, math.inf, (2**-10, 2**-13)),
+]
+
+
+@pytest.mark.parametrize("case", SIM_DECODE_CASES)
+def test_sim_decode_kernel_bit_identical_to_plain(cuda, case):
+    """Every output equal bit for bit (float64 compared as bits, so NaN
+    first-token times count)."""
+    c_max, n_inst, n_slots, t_limit, (w, h) = case
+    st = random_state(11, c_max, n_inst, n_slots, t_limit=t_limit, device=cuda)
+    args = [st[k] for k in SIM_DECODE_ARGS]
+    before = decode_advance.launches
+    got = decode_advance(*args, w=w, h=h, chunk=512)
+    torch.cuda.synchronize()
+    assert decode_advance.launches == before + 1
+    want = decode_advance_plain(*args, w=w, h=h, chunk=512)
+    for k in OUTPUTS:
+        a, b = got[k], want[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        if a.dtype == torch.float64:
+            a, b = a.view(torch.int64), b.view(torch.int64)
+        assert torch.equal(a, b), k
+
+
+def test_sim_decode_refuses_what_it_does_not_take(cuda):
+    st = random_state(3, [2048], 2, 8, device=cuda)
+    args = [st[k] for k in SIM_DECODE_ARGS]
+    kw = dict(w=2**-10, h=2**-13, chunk=512)
+    bad = list(args)
+    bad[SIM_DECODE_ARGS.index("now")] = args[SIM_DECODE_ARGS.index("now")].float()
+    with pytest.raises(TypeError, match="now"):
+        decode_advance(*bad, **kw)
+    bad = list(args)
+    bad[0] = args[0].cpu()
+    with pytest.raises(ValueError, match="one CUDA device"):
+        decode_advance(*bad, **kw)
+    bad = list(args)
+    bad[-1] = torch.tensor([2048, 4096], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="pools"):
+        decode_advance(*bad, **kw)
+
+
+def _des_case(name):
+    """(pools, timing, trace, total_blocks) of a small fleet: the routed
+    two-pool Azure fleet, or one pool under KV pressure (tiny block budget:
+    preemptions, the victim stash and truncation)."""
+    import numpy as np
+
+    from repro_torch.core.pools import PoolConfig, n_seq_for_cmax
+    from repro_torch.core.router import Request
+    from repro_torch.sim import A100_LLAMA3_70B, TimingModel
+    from repro_torch.traces import TraceSpec, generate_trace_columns
+
+    if name == "routed":
+        cols = generate_trace_columns(TraceSpec(trace="azure", num_requests=400, rate=400.0, seed=5))
+        pools = {
+            "short": (PoolConfig("short", 8192, n_seq_for_cmax(8192), headroom=1.05), 6),
+            "long": (PoolConfig("long", 65_536, 16, headroom=1.02), 12),
+        }
+        return pools, A100_LLAMA3_70B, cols, None
+    rng = np.random.default_rng(3)
+    arrivals = np.cumsum(rng.exponential(1.0 / 400.0, 300))
+    trace = [
+        Request(request_id=i, byte_len=int(rng.integers(4, 12_000)),
+                max_output_tokens=int(rng.integers(1, 400)), category=int(rng.integers(0, 4)),
+                arrival_time=float(arrivals[i]), true_input_tokens=int(rng.integers(16, 900)),
+                true_output_tokens=int(rng.integers(1, 400)))
+        for i in range(300)
+    ]
+    timing = TimingModel("dyadic", w_base=2**-10, h_per_seq=2**-13, prefill_chunk=512)
+    return {"p": (PoolConfig("p", 1024, 8), 3)}, timing, trace, 90
+
+
+@pytest.mark.parametrize("case", ["routed", "kv_pressure"])
+def test_torch_tier_on_the_card_equals_the_cpu(cuda, case):
+    """A fleet through ``backend="torch"``: the card's run launches the
+    kernel and gives the CPU run's records, counters and loop counts."""
+    from repro_torch.sim import FleetSim, torch_engine
+
+    pools, timing, trace, total_blocks = _des_case(case)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = decode_advance.launches
+        sim = FleetSim(pools, timing, backend="torch", device=dev, spillover=False,
+                       coalesce_dt=0.0)
+        if total_blocks is not None:
+            for pool in sim.pools.values():
+                pool.total_blocks = total_blocks
+                pool.blocks_free[:] = total_blocks
+        res = sim.run(trace)
+        runs[dev] = (sim, res, torch_engine.last_run_stats(), decode_advance.launches - before)
+    (gs, gr, gst, gl), (cs, cr, cst, cl) = runs["cuda"], runs["cpu"]
+    assert gl > 0 and cl == 0
+    assert (gst["iters"], gst["rounds"]) == (cst["iters"], cst["rounds"])
+    assert (gr.preemptions, gr.rejections, gr.truncations) == (
+        cr.preemptions, cr.rejections, cr.truncations
+    )
+    if case == "kv_pressure":
+        assert gr.preemptions > 0 and gr.truncations > 0
+    for name in gs.pools:
+        a, b = gs.pools[name].record_arrays(), cs.pools[name].record_arrays()
+        for col in a:
+            assert a[col].dtype == b[col].dtype, col
+            assert a[col].tobytes() == b[col].tobytes(), (name, col)

@@ -263,6 +263,10 @@ def test_port_imports_without_jax():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from repro_torch.sim import FleetSim, run_fleet, plan_fleet\n"
+        "from repro_torch.sim.torch_engine import run_fleet_torch\n"
+        "from repro_torch.traces import generate_trace_columns\n"
+        "from repro_torch.kernels.sim_decode import decode_advance\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')"
         " and sys.modules[n] is not None]\n"
         "assert not bad, bad\n"
