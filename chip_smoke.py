@@ -7,18 +7,25 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 1. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` into
    ``build/`` (one nvcc per source, all at once) and prints the build time;
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it (bf16, yi-6b widths), with the
-   tolerance printed, and times the kernel, the plain version and one
-   ``scaled_dot_product_attention`` call as a yardstick (the port never
-   calls it);
+   shapes the serving paths give it (bf16; yi-6b's head_dim 128, zamba2's
+   80, yi-6b's int8 pages with f16 scales; zamba2's SSD scan at its prompt
+   lengths, a ragged one included), with the tolerance printed, and times
+   the kernel, the plain version and, where one exists, one PyTorch call
+   computing the same function as a yardstick (the port never calls it);
 3. serves 16 requests through the port's ``TwoPoolServer`` on full-width
    yi-6b (random bf16 weights from a seed): short pool c_max 512 with 8
    slots, long pool c_max 2048 with 2 slots. The kernels' launch counters
-   are set to 0 just before and read just after; each must be > 0;
-4. profiles ten decode steps of the short pool with all slots busy (step
+   are set to 0 just before and read just after; each must be > 0. Then
+   profiles ten decode steps of the short pool with all slots busy (step
    time, the device's busy share, kernels by device time), and holds one
    request's decode-step logits against a full ``forward`` recompute;
-5. the fleet DES (``FleetSim(backend="torch", device="cuda")``) on the
+4. the same on yi-6b with an int8 KV cache (``Model(cfg,
+   kv_dtype="int8")``, the same weights and draw): the int8 paged kernel
+   must run, and its decode logits are held against the bf16 forward;
+5. the same on full-width zamba2-2.7b (54 Mamba-2 blocks, 2 shared
+   attention blocks applied 9 times; random bf16 weights from seed 0): the
+   SSD scan, flash and paged kernels must each run;
+6. the fleet DES (``FleetSim(backend="torch", device="cuda")``) on the
    paper's Table-2 fleet: an Azure trace at 1,000 req/s (seed 0),
    B_short 8192, the A100/Llama-3-70B timing model, short pool c_max 8192
    and long pool c_max 65,536 sized by ``plan_fleet``, spillover off. It
@@ -30,7 +37,7 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    runs a shorter routed trace on the card and on the CPU, whose records
    and loop counters must be equal bit for bit; and profiles a short
    routed run (device busy share, kernels per round);
-6. prints the kernels' JSON line, the card's name and power limit, and last
+7. prints the kernels' JSON line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -39,6 +46,7 @@ so does a machine without a GPU, and a directory without the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -73,8 +81,11 @@ from repro_torch.kernels.sim_decode import (  # noqa: E402
     decode_advance_plain,
     random_state,
 )
-from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.serving import ServeRequest, ServingEngine  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.launch.serve import run_workload, serve  # noqa: E402
+from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.transformer import quantize_kv  # noqa: E402
+from repro_torch.serving import ServeRequest, ServingEngine, TwoPoolServer  # noqa: E402
 from repro_torch.sim import A100_LLAMA3_70B, FleetSim, plan_fleet  # noqa: E402
 from repro_torch.sim import torch_engine  # noqa: E402
 from repro_torch.traces import TraceSpec, generate_trace_columns  # noqa: E402
@@ -88,17 +99,35 @@ PEAK_BYTES = 3.35e12
 # result; at |o| < 4 a bf16 ulp is 2**-6, so 2e-2 allows about one ulp plus
 # f32 summation-order noise.
 KERNEL_TOL = 2e-2
+# The int8 paged kernel and its plain version dequantize alike and differ
+# only by f32 summation order before the one bf16 rounding, so they are held
+# to INT8_ULPS bf16 ulps at the plain output's largest magnitude (at most
+# 7.8e-3 while |o| < 1): a wrong position's or tensor's scale moves outputs
+# by ~10 % of their value and fails it.
+INT8_ULPS = 2
 # Decode-step logits against a full-forward recompute, both bf16 at full
 # width (see logits_check): the two paths round different GEMM shapes
 # (M = slots vs M = L) and run different attention kernels; each rounding
 # is 2**-8 relative, and 32 layers of them stay within a few percent of the
 # logit vector's norm. Held as the relative L2 error.
 LOGITS_REL_TOL = 5e-2
+# The int8 cache's decode logits against the bf16 forward: on top of the
+# above, K and V carry int8 quantization noise (half a step of amax/127 per
+# value, ~0.4 % of the row's largest value) through every layer.
+INT8_LOGITS_REL_TOL = 1e-1
+# The SSD scan's f32 output against its plain version: the two sum the
+# same chunked products in different orders (elementwise |a - b| <=
+# SSD_ATOL + SSD_RTOL * |b|).
+SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
 
+DENSE, HYBRID = "yi-6b", "zamba2-2.7b"
 SERVE = dict(
-    arch="yi-6b", requests=16, short_cmax=512, long_cmax=2048,
+    requests=16, short_cmax=512, long_cmax=2048,
     short_slots=8, long_slots=2, seed=0, full_width=True,
 )
+#: Launch counters, by the name the JSON line gives each kernel's wrapper.
+COUNTERS = {"flash_attention": flash_attention, "paged_attention": paged_attention,
+            "ssd_scan": ssd_scan}
 
 # The paper's Table 2 fleet (1,000 req/s, B_short = 8192) on the DES.
 # ``requests`` is the routed and homogeneous runs' trace length, ``cross``
@@ -139,17 +168,24 @@ def time_ms(fn, *, iters: int = 20, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def bf16_ulps(ref: torch.Tensor, n: int) -> float:
+    """``n`` bf16 ulps at ``ref``'s largest magnitude."""
+    top = ref.float().abs().max().item()
+    return n * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_phase(dev, flush) -> dict:
-    """Causal prefill at yi-6b widths (H=32, K=4, D=128, bf16)."""
+def flash_phase(dev, flush, *, heads: tuple[int, int, int], lengths: tuple[int, ...],
+                tag: str) -> dict:
+    """Causal prefill at one model's widths (H, K, D), bf16."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    H, K, D = 32, 4, 128
+    H, K, D = heads
     rows = {}
-    for L in (64, 256, 512, 1024):
+    for L in lengths:
         q = torch.randn(1, H, L, D, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(1, K, L, D, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(1, K, L, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -157,7 +193,7 @@ def flash_phase(dev, flush) -> dict:
         torch.cuda.synchronize()
         err = (out.float() - flash_attention_plain(q, k, v).float()).abs().max().item()
         if not err <= KERNEL_TOL:
-            fail(f"flash L={L}: max |kernel - plain| {err} > {KERNEL_TOL}")
+            fail(f"flash {tag} L={L}: max |kernel - plain| {err} > {KERNEL_TOL}")
         nbytes = 2 * (2 * H * L * D + 2 * K * L * D)  # q, o, k, v in bf16
         flops = 4 * H * D * (L * (L + 1) // 2)  # QK^T and PV over causal pairs
         bnd, by = bound_ms(nbytes, flops)
@@ -174,18 +210,21 @@ def flash_phase(dev, flush) -> dict:
             bound_ms=bnd, bound_by=by,
         )
         rows[L] = row
-        print(f"[flash] L={L:5d} err {err:.3g} (tol {KERNEL_TOL}) kernel "
-              f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
+        print(f"[flash] {tag} H={H} K={K} D={D} L={L:5d} err {err:.3g} (tol {KERNEL_TOL}) "
+              f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
               f"{row['library_ms']:.4f} ms bound {bnd:.4f} ms ({by})", flush=True)
     return rows
 
 
-def paged_phase(dev, flush) -> dict:
+def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool = False) -> dict:
     """Decode over one layer's slot cache viewed as 16-token pages, at the
     serving pools' shapes (short: 8 slots x 512, long: 2 slots x 2048),
-    ragged lengths, plus a poison check of the pages past each length."""
+    ragged lengths, plus a poison check of the pages past each length.
+    With ``int8`` the cache is quantized as the model quantizes it (int8
+    values, one f16 scale per position and head); the yardstick is SDPA
+    over the dequantized bf16 cache, the dequantization timed apart."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    H, K, D = 32, 4, 128
+    H, K, D = heads
     rows = {}
     for name, slots, c_max in (("short", 8, 512), ("long", 2, 2048)):
         q = torch.randn(slots, H, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -193,31 +232,48 @@ def paged_phase(dev, flush) -> dict:
         vc = torch.randn(slots, c_max, K, D, generator=gen, device=dev).to(torch.bfloat16)
         lengths = torch.randint(1, c_max + 1, (slots,), generator=gen, device=dev, dtype=torch.int32)
         bt = ops.slot_block_table(slots, c_max, dev)
+        scales: tuple = ()
+        if int8:
+            (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+            scales = (ks.view(-1, ops.PAGE, K, 1), vs.view(-1, ops.PAGE, K, 1))
         kp = kc.view(-1, ops.PAGE, K, D)
         vp = vc.view(-1, ops.PAGE, K, D)
-        out = paged_attention(q, kp, vp, bt, lengths)
+        out = paged_attention(q, kp, vp, bt, lengths, *scales)
         torch.cuda.synchronize()
-        err = (out.float() - paged_attention_plain(q, kp, vp, bt, lengths).float()).abs().max().item()
-        if not err <= KERNEL_TOL:
-            fail(f"paged {name}: max |kernel - plain| {err} > {KERNEL_TOL}")
-        kp2, vp2 = kp.clone(), vp.clone()
+        plain = paged_attention_plain(q, kp, vp, bt, lengths, *scales)
+        err = (out.float() - plain.float()).abs().max().item()
+        tol = bf16_ulps(plain, INT8_ULPS) if int8 else KERNEL_TOL
+        if not err <= tol:
+            fail(f"paged {tag} {name}: max |kernel - plain| {err} > {tol}")
+        poisoned = [t.clone() for t in (scales if int8 else (kp, vp))]
         for b in range(slots):
             dead = bt[b, math.ceil(int(lengths[b]) / ops.PAGE):].long()
-            kp2[dead] = float("nan")
-            vp2[dead] = float("nan")
-        if not torch.equal(paged_attention(q, kp2, vp2, bt, lengths), out):
-            fail(f"paged {name}: pages past the length changed the output")
+            for t in poisoned:
+                t[dead] = float("nan")
+        args = (kp, vp, *poisoned) if int8 else (*poisoned,)
+        if not torch.equal(paged_attention(q, *args[:2], bt, lengths, *args[2:]), out):
+            fail(f"paged {tag} {name}: pages past the length changed the output")
         total = int(lengths.sum())
         pages = int(((lengths + ops.PAGE - 1) // ops.PAGE).sum())  # table entries read
-        nbytes = 2 * (2 * total * K * D + 2 * slots * H * D) + 4 * (pages + slots)
+        per_pos = K * (D + 2) if int8 else K * D * 2  # K or V bytes per position
+        nbytes = 2 * total * per_pos + 2 * 2 * slots * H * D + 4 * (pages + slots)
         flops = 4 * H * D * total
         bnd, by = bound_ms(nbytes, flops)
         mask = torch.arange(c_max, device=dev)[None] < lengths[:, None]
-        q4, k4, v4 = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+
+        def dequant():
+            if not int8:
+                return kc, vc
+            return ((kc.float() * ks.float()).to(torch.bfloat16),
+                    (vc.float() * vs.float()).to(torch.bfloat16))
+
+        kd, vd = dequant()
+        q4, k4, v4 = q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2)
         row = dict(
             slots=slots, c_max=c_max, sum_lengths=total, max_abs_err=err,
-            ms=time_ms(lambda: paged_attention(q, kp, vp, bt, lengths), flush=flush),
-            plain_ms=time_ms(lambda: paged_attention_plain(q, kp, vp, bt, lengths), flush=flush),
+            ms=time_ms(lambda: paged_attention(q, kp, vp, bt, lengths, *scales), flush=flush),
+            plain_ms=time_ms(lambda: paged_attention_plain(q, kp, vp, bt, lengths, *scales),
+                             flush=flush),
             library_ms=time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=mask[:, None, None], enable_gqa=True
@@ -226,52 +282,138 @@ def paged_phase(dev, flush) -> dict:
             ),
             bound_ms=bnd, bound_by=by,
         )
+        extra = ""
+        if int8:
+            row["dequant_ms"] = time_ms(dequant, flush=flush)
+            extra = f" (+ dequantize to bf16 {row['dequant_ms']:.4f} ms)"
         rows[name] = row
-        print(f"[paged] {name} B={slots} c_max={c_max} sum(len)={total} err "
-              f"{err:.3g} (tol {KERNEL_TOL}), poison ok; kernel {row['ms']:.4f} ms "
-              f"plain {row['plain_ms']:.4f} ms sdpa {row['library_ms']:.4f} ms "
-              f"bound {bnd:.4f} ms ({by})", flush=True)
+        print(f"[paged] {tag} H={H} K={K} D={D} {name} B={slots} c_max={c_max} "
+              f"sum(len)={total} err {err:.3g} (tol {tol:.3g}), poison ok; kernel "
+              f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
+              f"{row['library_ms']:.4f} ms{extra} bound {bnd:.4f} ms ({by})", flush=True)
     return rows
 
 
-def serve_phase() -> dict:
-    flash_attention.launches = 0
-    paged_attention.launches = 0
-    result = serve(**SERVE, device="cuda")
-    launches = {
-        "flash_attention": flash_attention.launches,
-        "paged_attention": paged_attention.launches,
-    }
-    srv = result["server"]
+def ssd_min_flops(L: int, P: int, N: int) -> int:
+    """The fewest FLOPs one head's scan of L steps takes: the chunked form
+    at its cheapest chunk length q (the kernel's own q = 64 costs more; q = 1
+    is about the 5·P·N-a-step recurrence). A chunk of m steps costs the
+    masked C·Bᵀ and scores·x over i >= j, (N + P)·m(m + 1); the C·S read and
+    the state update, 2·2·m·P·N; and the state's decay, P·N. At P = N = 64
+    the cheapest q is 5 or 6, about 18.0 k FLOPs a step."""
+
+    def chunk(m: int) -> int:
+        return (N + P) * m * (m + 1) + 4 * m * P * N + P * N
+
+    def at(q: int) -> int:
+        full, tail = divmod(L, q)
+        return full * chunk(q) + (chunk(tail) if tail else 0)
+
+    return min(at(q) for q in range(1, L + 1))
+
+
+def ssd_phase(dev, flush) -> dict:
+    """The SSD chunk scan at zamba2's prefill shape (B = 1, H = 80 SSM
+    heads, P = 64, N = 64; x folded with dt in f32, B/C bf16 as the model
+    gives them) at the longest prompt a short-pool request brings and at a
+    ragged length."""
+    cfg = get_config(HYBRID)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {}
+    for L in (256, 200):
+        dt = torch.rand((1, H, L), generator=gen, device=dev) * 0.19 + 0.01
+        a = -(torch.rand((H,), generator=gen, device=dev) * 1.5 + 0.5)
+        x = torch.randn((1, H, L, P), generator=gen, device=dev) * dt[..., None]
+        log_a = (a[None, :, None] * dt).contiguous()
+        bm = torch.randn((1, L, N), generator=gen, device=dev).to(torch.bfloat16)
+        cm = torch.randn((1, L, N), generator=gen, device=dev).to(torch.bfloat16)
+        y, st = ssd_scan(x, log_a, bm, cm)
+        torch.cuda.synchronize()
+        yp, sp = ssd_scan_plain(x, log_a, bm, cm)
+        for got, want, what in ((y, yp, "y"), (st, sp, "state")):
+            if not torch.allclose(got, want, atol=SSD_ATOL, rtol=SSD_RTOL):
+                fail(f"ssd_scan L={L}: {what} differs from the plain version, max "
+                     f"|diff| {(got - want).abs().max().item()}")
+        err = max((y - yp).abs().max().item(), (st - sp).abs().max().item())
+        # bytes: x read and y written in f32, log_a, B and C, the state written
+        nbytes = 4 * 2 * H * L * P + 4 * H * L + 2 * 2 * L * N + 4 * H * P * N
+        bnd, by = bound_ms(nbytes, H * ssd_min_flops(L, P, N), PEAK_F32_FLOPS)
+        row = dict(
+            L=L, max_abs_err=err,
+            ms=time_ms(lambda: ssd_scan(x, log_a, bm, cm), flush=flush),
+            plain_ms=time_ms(lambda: ssd_scan_plain(x, log_a, bm, cm), flush=flush),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+        )
+        rows[L] = row
+        print(f"[ssd_scan] B=1 H={H} P={P} N={N} L={L} grid {H} CTAs: max |kernel - plain| "
+              f"{err:.3g} (tol {SSD_ATOL} + {SSD_RTOL}*|plain|); kernel {row['ms']:.4f} ms "
+              f"plain {row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}); no single "
+              f"PyTorch call computes this scan", flush=True)
+    return rows
+
+
+def check_served(result: dict, arch: str, kernels: tuple[str, ...], tag: str) -> dict:
+    """Every request answered with in-vocabulary tokens, calibration fed by
+    every response, and each kernel of the path launched; prints the
+    serve phase's lines. Returns the launches and the decode rate."""
+    launches = {name: COUNTERS[name].launches for name in kernels}
     stats = result["stats"]
     responses = sorted(result["responses"], key=lambda r: r.request_id)
-    vocab = get_config("yi-6b").vocab
+    vocab = get_config(arch).vocab
     if [r.request_id for r in responses] != list(range(SERVE["requests"])):
-        fail(f"served {len(responses)} of {SERVE['requests']} requests")
+        fail(f"{tag}: served {len(responses)} of {SERVE['requests']} requests")
     for r in responses:
-        print(f"[serve] req {r.request_id:2d} pool {r.pool:5s} prompt "
+        print(f"[{tag}] req {r.request_id:2d} pool {r.pool:5s} prompt "
               f"{r.prompt_tokens:3d} est {r.estimated_budget:4d} out "
               f"{len(r.output_tokens):4d} first {r.output_tokens[:6]}")
         if not r.output_tokens or not all(0 <= t < vocab for t in r.output_tokens):
-            fail(f"request {r.request_id}: bad output tokens")
+            fail(f"{tag}: request {r.request_id}: bad output tokens")
     if sum(stats["router"]["calibration"]["count"]) != SERVE["requests"]:
-        fail("calibration did not see every response")
+        fail(f"{tag}: calibration did not see every response")
     if sum(result["by_pool"].values()) != SERVE["requests"]:
-        fail(f"pool split {result['by_pool']} does not cover every request")
+        fail(f"{tag}: pool split {result['by_pool']} does not cover every request")
     decode_tokens = stats["short_decode_tokens"] + stats["long_decode_tokens"]
-    print(f"[serve] router stats: {json.dumps(stats['router'])}")
-    print(f"[serve] decode tokens {decode_tokens} in {result['wall_s']:.3f} s of serving: "
+    print(f"[{tag}] router stats: {json.dumps(stats['router'])}")
+    print(f"[{tag}] decode tokens {decode_tokens} in {result['wall_s']:.3f} s of serving: "
           f"{decode_tokens / result['wall_s']:.1f} tok/s; iterations short "
           f"{stats['short_iterations']} long {stats['long_iterations']}")
-    print(f"[serve] kernel launches on the main path: {launches}", flush=True)
+    print(f"[{tag}] kernel launches on the main path: {launches}", flush=True)
     for name, n in launches.items():
         if n == 0:
-            fail(f"{name} was never launched on the main path")
-    return {"launches": launches, "server": srv, "decode_tokens": decode_tokens,
+            fail(f"{tag}: {name} was never launched on the main path")
+    return {"launches": launches, "server": result["server"], "decode_tokens": decode_tokens,
             "wall_s": result["wall_s"]}
 
 
-def profile_decode(srv, steps: int = 10) -> dict:
+def reset_counters() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def serve_phase(arch: str, kernels: tuple[str, ...], tag: str) -> dict:
+    reset_counters()
+    result = serve(arch, **SERVE, device="cuda")
+    return check_served(result, arch, kernels, tag)
+
+
+def serve_int8_phase(dense_srv) -> dict:
+    """yi-6b with an int8 KV cache: the bf16 serve's weights (as drawn, not
+    yet tempered by ``logits_check``), the same pools and the same
+    16-request draw."""
+    params = dense_srv.short_engine.params
+    model = Model(get_config(DENSE), kv_dtype="int8")
+    srv = TwoPoolServer(model, params, short_cmax=SERVE["short_cmax"],
+                        long_cmax=SERVE["long_cmax"], short_slots=SERVE["short_slots"],
+                        long_slots=SERVE["long_slots"])
+    if srv.short_engine.cache.state[0].dtype != torch.int8:
+        fail("the int8 model's slot cache is not int8")
+    reset_counters()
+    result = run_workload(srv, requests=SERVE["requests"], seed=SERVE["seed"])
+    return check_served(result, DENSE, ("paged_attention",), "serve-int8")
+
+
+def profile_decode(srv, tag: str, steps: int = 10) -> dict:
     """Where a decode step's time goes: the short pool's engine with all 8
     slots busy, ``steps`` decode steps under torch.profiler. Returns the
     step time, the device's busy share and the kernels by device time."""
@@ -302,10 +444,11 @@ def profile_decode(srv, steps: int = 10) -> dict:
         step_ms=wall_ms / steps, busy_share=busy_ms / wall_ms,
         top=[(e.key[:60], e.count // steps, e.self_device_time_total / 1e3 / steps) for e in top],
     )
-    print(f"[profile] short pool, 8 busy slots: {out['step_ms']:.3f} ms per decode step, "
-          f"device busy {100 * out['busy_share']:.1f}% of the wall")
+    print(f"[{tag}] short pool, 8 busy slots: {out['step_ms']:.3f} ms per decode step, "
+          f"device busy {100 * out['busy_share']:.1f}% of the wall, "
+          f"{sum(e.count for e in kernels) / steps:.0f} kernels per step")
     for key, n, ms in out["top"]:
-        print(f"[profile]   {ms:8.4f} ms/step  {n:4d}/step  {key}")
+        print(f"[{tag}]   {ms:8.4f} ms/step  {n:4d}/step  {key}")
     return out
 
 
@@ -333,27 +476,44 @@ def decode_vs_forward(model, params) -> dict:
     )
 
 
-def logits_check(srv) -> float:
+def logits_check(srv, tag: str) -> float:
     """Decode-step logits against a full forward recompute, full width.
 
     With the reference's init (q/k projections scaled by the head count, so
     attention scores have a std near 100 at yi-6b widths and softmax is an
     arg-max) the two paths' different bf16 roundings pick different keys
     and the logits decorrelate; that reading is printed, not held. The held
-    reading scales w_q and w_k by 0.1 (in place, after serving), which
-    leaves the attention soft, so the paths differ by bf16 rounding only.
+    reading scales w_q and w_k by 0.1 (in place, after serving; the dense
+    model's layers, the hybrid's shared attention blocks), which leaves the
+    attention soft, so the paths differ by bf16 rounding only.
     """
     model, params = srv.short_engine.model, srv.short_engine.params
     raw = decode_vs_forward(model, params)
-    print(f"[logits] reference init (not held): {raw}")
+    print(f"[{tag}] reference init (not held): {raw}")
+    attn = params["shared"] if "shared" in params else params["blocks"]
     for name in ("w_q", "w_k"):
-        params["blocks"][name].mul_(0.1)
+        attn[name].mul_(0.1)
     r = decode_vs_forward(model, params)
-    print(f"[logits] w_q, w_k x0.1: decode step vs forward rel L2 {r['rel_l2']:.4g} "
+    print(f"[{tag}] w_q, w_k x0.1: decode step vs forward rel L2 {r['rel_l2']:.4g} "
           f"(tol {LOGITS_REL_TOL}), max |diff| {r['max_abs_diff']:.4g} of max |logit| "
           f"{r['max_abs_logit']:.4g}; argmax {r['argmax']}")
     if not r["rel_l2"] <= LOGITS_REL_TOL:
-        fail(f"decode logits differ from forward: rel L2 {r['rel_l2']} > {LOGITS_REL_TOL}")
+        fail(f"{tag}: decode logits differ from forward: rel L2 {r['rel_l2']} > "
+             f"{LOGITS_REL_TOL}")
+    return r["rel_l2"]
+
+
+def logits_int8_check(srv) -> float:
+    """The int8 model's decode-step logits against the bf16 full forward
+    (its forward is the bf16 model's: the cache plays no part), on the
+    weights ``logits_check`` tempered."""
+    r = decode_vs_forward(srv.short_engine.model, srv.short_engine.params)
+    print(f"[logits-int8] int8 decode step vs bf16 forward rel L2 {r['rel_l2']:.4g} "
+          f"(tol {INT8_LOGITS_REL_TOL}), max |diff| {r['max_abs_diff']:.4g} of max |logit| "
+          f"{r['max_abs_logit']:.4g}; argmax {r['argmax']}")
+    if not r["rel_l2"] <= INT8_LOGITS_REL_TOL:
+        fail(f"int8 decode logits differ from the bf16 forward: rel L2 {r['rel_l2']} > "
+             f"{INT8_LOGITS_REL_TOL}")
     return r["rel_l2"]
 
 
@@ -571,40 +731,78 @@ def main() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
-    flash_rows = flash_phase(dev, flush)
-    paged_rows = paged_phase(dev, flush)
+    dense_cfg, hybrid_cfg = get_config(DENSE), get_config(HYBRID)
+    dense_heads = (dense_cfg.n_heads, dense_cfg.n_kv_heads, dense_cfg.head_dim)
+    hybrid_heads = (hybrid_cfg.n_heads, hybrid_cfg.n_kv_heads, hybrid_cfg.head_dim)
+    flash_rows = flash_phase(dev, flush, heads=dense_heads, lengths=(64, 256, 512, 1024),
+                             tag=DENSE)
+    flash80 = flash_phase(dev, flush, heads=hybrid_heads, lengths=(256, 200), tag=HYBRID)
+    paged_rows = paged_phase(dev, flush, heads=dense_heads, tag=DENSE)
+    paged80 = paged_phase(dev, flush, heads=hybrid_heads, tag=HYBRID)
+    paged8 = paged_phase(dev, flush, heads=dense_heads, tag=f"{DENSE} int8", int8=True)
+    ssd_rows = ssd_phase(dev, flush)
     del flush
-    served = serve_phase()
-    profile_decode(served["server"])
-    logits_check(served["server"])
+
+    served = serve_phase(DENSE, ("flash_attention", "paged_attention"), "serve")
+    profile_decode(served["server"], "profile")
+    served8 = serve_int8_phase(served["server"])  # before logits_check tempers the weights
+    profile_decode(served8["server"], "profile-int8")
+    logits_check(served["server"], "logits")
+    logits_int8_check(served8["server"])
+    served_launches, int8_launches = served["launches"], served8["launches"]
+    del served, served8
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    hybrid = serve_phase(HYBRID, ("flash_attention", "paged_attention", "ssd_scan"),
+                         "serve-hybrid")
+    profile_decode(hybrid["server"], "profile-hybrid")
+    logits_check(hybrid["server"], "logits-hybrid")
+    del hybrid["server"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     des = des_phase(dev, flush)
     del flush
 
     # The JSON line carries each kernel at its path's shapes: the largest
-    # prompt bucket (L=256), the short pool's decode, the Table-2 fleet's
-    # stacked slot arrays.
-    f, p, d = flash_rows[256], paged_rows["short"], des["kernel"]
+    # prompt bucket of yi-6b (L=256) and zamba2's longest short-pool prompt
+    # (L=256), the short pool's decode at each model's widths (and int8
+    # pages), zamba2's SSD scan at L=256, the Table-2 fleet's stacked slot
+    # arrays. Launches are each path's count.
+    def entry(name, source, replaces, path, launches, row, shape):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+                    replaces=replaces, path=path, shape=shape, launches=launches,
+                    max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=row.get("library_ms"))
+
+    flash_src, paged_src = "flash_attention.cu", "paged_attention.cu"
+    flash_rep = "src/repro/kernels/flash_attention.py:96"
+    paged_rep = "src/repro/kernels/paged_attention.py:96"
+    h_launch = hybrid["launches"]
     kernels = [
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:96",
-             launches=served["launches"]["flash_attention"],
-             max_abs_err=f["max_abs_err"], ms=f["ms"], plain_ms=f["plain_ms"],
-             bound_ms=f["bound_ms"], bound_by=f["bound_by"], library_ms=f["library_ms"]),
-        dict(name="paged_attention", route="cuda",
-             source="src/repro_torch/csrc/paged_attention.cu",
-             replaces="src/repro/kernels/paged_attention.py:96",
-             launches=served["launches"]["paged_attention"],
-             max_abs_err=p["max_abs_err"], ms=p["ms"], plain_ms=p["plain_ms"],
-             bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=p["library_ms"]),
-        dict(name="sim_decode", route="cuda",
-             source="src/repro_torch/csrc/sim_decode.cu",
-             replaces="src/repro/kernels/sim_decode.py:243",
-             launches=des["launches"], max_abs_err=d["max_abs_err"], ms=d["ms"],
-             plain_ms=d["plain_ms"], bound_ms=d["bound_ms"], bound_by=d["bound_by"],
-             library_ms=None),
+        entry("flash_attention", flash_src, flash_rep, f"serve {DENSE}",
+              served_launches["flash_attention"], flash_rows[256], "H=32 K=4 D=128 L=256"),
+        entry("flash_attention_d80", flash_src, flash_rep, f"serve {HYBRID}",
+              h_launch["flash_attention"], flash80[256], "H=32 K=32 D=80 L=256"),
+        entry("paged_attention", paged_src, paged_rep, f"serve {DENSE}",
+              served_launches["paged_attention"], paged_rows["short"],
+              "8 slots x 512, H=32 K=4 D=128, bf16 pages"),
+        entry("paged_attention_d80", paged_src, paged_rep, f"serve {HYBRID}",
+              h_launch["paged_attention"], paged80["short"],
+              "8 slots x 512, H=32 K=32 D=80, bf16 pages"),
+        entry("paged_attention_int8", paged_src, "src/repro/kernels/paged_attention.py:69",
+              f"serve {DENSE} kv_dtype=int8", int8_launches["paged_attention"],
+              paged8["short"], "8 slots x 512, H=32 K=4 D=128, int8 pages, f16 scales"),
+        entry("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:91", f"serve {HYBRID}",
+              h_launch["ssd_scan"], ssd_rows[256], "B=1 H=80 P=64 N=64 L=256"),
+        entry("sim_decode", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
+              "DES routed Table-2 fleet", des["launches"], des["kernel"],
+              f"(P, I, S) = {des['kernel']['shape']}"),
     ]
+    kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

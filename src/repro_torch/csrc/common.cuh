@@ -1,9 +1,12 @@
-// Helpers shared by the port's attention kernels: f32 widening of the
-// storage types, rounding stores, and 16-byte vector loads.
+// Helpers shared by the port's kernels: f32 widening of the storage types,
+// rounding stores, and 16-byte vector loads.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace repro {
 
@@ -13,6 +16,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
@@ -28,6 +32,10 @@ struct Vec16<float> {
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int n = 8;
+};
+template <>
+struct Vec16<int8_t> {
+  static constexpr int n = 16;
 };
 
 // One 16-byte load (p must be 16-byte aligned), widened to f32.
@@ -47,6 +55,12 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
     out[2 * j] = f.x;
     out[2 * j + 1] = f.y;
   }
+}
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 raw = *reinterpret_cast<const int4*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) out[j] = static_cast<float>(c[j]);
 }
 
 }  // namespace repro

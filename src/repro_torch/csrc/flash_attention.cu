@@ -22,7 +22,10 @@
 //   * Any length works: rows and columns past L are zero-filled and masked,
 //     so the serving engine's 64-token prompt buckets need no padding here.
 //   * Tiles are loaded with 16-byte vector loads (rows must start 16-byte
-//     aligned: D a multiple of 8, base pointers 16-byte aligned).
+//     aligned: D a multiple of 8, base pointers 16-byte aligned). Head
+//     dims 32, 64, 80 (zamba2's shared attention), 128 and 256 are
+//     instantiated; at D = 80 a thread holds 20 output columns and a bf16
+//     row is ten 16-byte loads.
 //   * Products run on the CUDA cores in f32 (four threads per query row,
 //     16 score columns each, shuffles for the row max and sum). This leaves
 //     the tensor cores idle; moving QK^T and PV onto wgmma with TMA-fed
@@ -195,6 +198,7 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, o, B, H, KH, Lq, Lk, causal, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, B, H, KH, Lq, Lk, causal, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, KH, Lq, Lk, causal, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, B, H, KH, Lq, Lk, causal, scale, stream);
     case 256: return launch<T, 256>(q, k, v, o, B, H, KH, Lq, Lk, causal, scale, stream);
     default: return cudaErrorInvalidValue;

@@ -3,13 +3,16 @@
 //
 // Replaces: src/repro/kernels/paged_attention.py::paged_attention_pallas
 // (body _paged_kernel), the TPU kernel whose jnp twin the reference model
-// runs at decode (models/layers.py::decode_attention over the slot cache).
-// The int8-page variant of that kernel is not ported yet.
+// runs at decode (models/layers.py::decode_attention over the slot cache),
+// with its bf16, f32 and int8 pages. Int8 pages carry one scale per
+// (position, head) (f16 in the model's cache, f32 in the reference's kernel
+// test); the kernel dequantizes right after the 16-byte load, as the TPU
+// kernel does after its page read, so device memory holds and moves int8.
 //
 // What bounds it on an H100: bytes. Each KV position is read once and used
 // for G = H / K query heads, about 2 * G FLOPs per KV byte, far below the
-// card's ~295 FLOPs per byte. The floor is sum(lengths) * K * D * 2 (K and V)
-// * itemsize bytes per layer at 3.35 TB/s.
+// card's ~295 FLOPs per byte. The floor is sum(lengths) * K * 2 (K and V)
+// * (D * itemsize + scale bytes) per layer at 3.35 TB/s.
 //
 // What this design does about it (first, simple version):
 //   * One CTA per (sequence, kv_head) serves all G query heads of that KV
@@ -23,13 +26,17 @@
 //     is zero-filled and the scores masked), so pages past the length cost
 //     nothing and may hold anything.
 //   * Pages are read with 16-byte vector loads, coalesced along D, several
-//     in flight per thread. The grid has only B * K CTAs, which
-//     cannot fill 132 SMs at serving batch sizes; splitting the sequence
-//     across CTAs (a second reduction pass) is the next step for this
-//     kernel.
+//     in flight per thread (8 bf16 or 16 int8 values a load; D = 80 is
+//     10 bf16 or 5 int8 loads a row). zamba2's shared attention is full
+//     MHA (G = 1): one query head per CTA, one KV head's positions.
+//   * The grid has only B * K CTAs, which cannot fill 132 SMs at serving
+//     batch sizes; splitting the sequence across CTAs (a second reduction
+//     pass) is the next step for this kernel.
 //
 // Interface: plain C, pointers from torch tensors, launched on the caller's
 // stream; returns the cudaError_t of the launch (0 on success).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -55,13 +62,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename TQ, typename TKV, int D>
+// TS is the type of the int8 pages' scales (unused for bf16/f32 pages).
+template <typename TQ, typename TKV, typename TS, int D>
 __global__ void __launch_bounds__(kThreads)
     paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
                         const TKV* __restrict__ vp,
+                        const TS* __restrict__ k_scales,
+                        const TS* __restrict__ v_scales,
                         const int* __restrict__ block_tables,
                         const int* __restrict__ lengths, TQ* __restrict__ o,
                         int H, int KH, int page, int pps, float scale) {
+  constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int DP = D + 1;  // padded shared-memory row stride
   constexpr int V = repro::Vec16<TKV>::n;  // elements per 16-byte load
   constexpr int CH = D / V;                // 16-byte chunks per position
@@ -103,10 +114,18 @@ __global__ void __launch_bounds__(kThreads)
       const int pos = t0 + t;
       float kx[V], vx[V];
       if (pos < len) {
-        const size_t off =
-            (((size_t)bt[pos / page] * page + pos % page) * KH + kvh) * D + d;
-        load16(kp + off, kx);
-        load16(vp + off, vx);
+        const size_t row =
+            ((size_t)bt[pos / page] * page + pos % page) * KH + kvh;
+        load16(kp + row * D + d, kx);
+        load16(vp + row * D + d, vx);
+        if constexpr (kQuant) {
+          const float sk = to_f32(k_scales[row]), sv = to_f32(v_scales[row]);
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            kx[j] *= sk;
+            vx[j] *= sv;
+          }
+        }
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j) kx[j] = vx[j] = 0.f;
@@ -165,75 +184,79 @@ __global__ void __launch_bounds__(kThreads)
     store(acc[i] / fmaxf(ls[i / D], 1e-30f), og + i);
 }
 
-template <typename TQ, typename TKV, int D>
-cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const int* bt, const int* lengths, void* o, int B, int H,
-                   int KH, int page, int pps, float scale,
-                   cudaStream_t stream) {
-  const int G = H / KH;
+// The operands every dispatch level passes on unchanged.
+struct Args {
+  const void *q, *kp, *vp, *ks, *vs;
+  const int *bt, *lengths;
+  void* o;
+  int B, H, KH, page, pps;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename TKV, typename TS, int D>
+cudaError_t launch(const Args& a) {
+  const int G = a.H / a.KH;
   const size_t smem =
       (size_t)(2 * G * D + 2 * kTok * (D + 1) + G * kTok + 3 * G) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<TQ, TKV, D>,
+      paged_decode_kernel<TQ, TKV, TS, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(KH, B);
-  paged_decode_kernel<TQ, TKV, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), bt, lengths, static_cast<TQ*>(o), H, KH,
-      page, pps, scale);
+  const dim3 grid(a.KH, a.B);
+  paged_decode_kernel<TQ, TKV, TS, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
+      static_cast<const TKV*>(a.vp), static_cast<const TS*>(a.ks),
+      static_cast<const TS*>(a.vs), a.bt, a.lengths, static_cast<TQ*>(a.o),
+      a.H, a.KH, a.page, a.pps, a.scale);
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t dispatch_d(const void* q, const void* kp, const void* vp,
-                       const int* bt, const int* lengths, void* o, int B,
-                       int H, int KH, int D, int page, int pps, float scale,
-                       cudaStream_t s) {
+template <typename TQ, typename TKV, typename TS>
+cudaError_t dispatch_d(const Args& a, int D) {
   switch (D) {
-    case 32: return launch<TQ, TKV, 32>(q, kp, vp, bt, lengths, o, B, H, KH, page, pps, scale, s);
-    case 64: return launch<TQ, TKV, 64>(q, kp, vp, bt, lengths, o, B, H, KH, page, pps, scale, s);
-    case 128: return launch<TQ, TKV, 128>(q, kp, vp, bt, lengths, o, B, H, KH, page, pps, scale, s);
-    case 256: return launch<TQ, TKV, 256>(q, kp, vp, bt, lengths, o, B, H, KH, page, pps, scale, s);
+    case 32: return launch<TQ, TKV, TS, 32>(a);
+    case 64: return launch<TQ, TKV, TS, 64>(a);
+    case 80: return launch<TQ, TKV, TS, 80>(a);
+    case 128: return launch<TQ, TKV, TS, 128>(a);
+    case 256: return launch<TQ, TKV, TS, 256>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename TQ>
-cudaError_t dispatch_kv(const void* q, const void* kp, const void* vp,
-                        const int* bt, const int* lengths, void* o, int B,
-                        int H, int KH, int D, int page, int pps, float scale,
-                        int kv_dtype, cudaStream_t s) {
-  if (kv_dtype == 0)
-    return dispatch_d<TQ, float>(q, kp, vp, bt, lengths, o, B, H, KH, D, page, pps, scale, s);
-  if (kv_dtype == 1)
-    return dispatch_d<TQ, __nv_bfloat16>(q, kp, vp, bt, lengths, o, B, H, KH, D, page, pps, scale, s);
+cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, int scale_dtype) {
+  if (kv_dtype == 0) return dispatch_d<TQ, float, float>(a, D);
+  if (kv_dtype == 1) return dispatch_d<TQ, __nv_bfloat16, float>(a, D);
+  if (kv_dtype == 2 && scale_dtype == 0) return dispatch_d<TQ, int8_t, float>(a, D);
+  if (kv_dtype == 2 && scale_dtype == 2) return dispatch_d<TQ, int8_t, __half>(a, D);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtypes: 0 = float32, 1 = bfloat16. q (B,H,D) and o like q; pages
-// (P,page,KH,D); block_tables (B,pps) and lengths (B,) int32; all contiguous.
+// dtypes: 0 = float32, 1 = bfloat16, 2 = int8 (pages) or float16 (scales).
+// q (B,H,D) and o like q; pages (P,page,KH,D); for int8 pages the scales
+// (P,page,KH,1), else null; block_tables (B,pps) and lengths (B,) int32;
+// all contiguous.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
-                                   const void* v_pages,
+                                   const void* v_pages, const void* k_scales,
+                                   const void* v_scales,
                                    const void* block_tables,
                                    const void* lengths, void* o, int B,
                                    int H, int KH, int D, int page, int pps,
                                    float scale, int q_dtype, int kv_dtype,
-                                   void* stream) {
+                                   int scale_dtype, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || page <= 0 || pps <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* bt = static_cast<const int*>(block_tables);
-  const int* ln = static_cast<const int*>(lengths);
-  cudaError_t err;
-  if (q_dtype == 0)
-    err = dispatch_kv<float>(q, k_pages, v_pages, bt, ln, o, B, H, KH, D, page, pps, scale, kv_dtype, s);
-  else if (q_dtype == 1)
-    err = dispatch_kv<__nv_bfloat16>(q, k_pages, v_pages, bt, ln, o, B, H, KH, D, page, pps, scale, kv_dtype, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  if (kv_dtype == 2 && (k_scales == nullptr || v_scales == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k_pages, v_pages, k_scales, v_scales,
+               static_cast<const int*>(block_tables),
+               static_cast<const int*>(lengths), o, B, H, KH, page, pps,
+               scale, static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0) return (int)dispatch_kv<float>(a, D, kv_dtype, scale_dtype);
+  if (q_dtype == 1) return (int)dispatch_kv<__nv_bfloat16>(a, D, kv_dtype, scale_dtype);
+  return (int)cudaErrorInvalidValue;
 }

@@ -2,9 +2,11 @@
 
 * ``flash_attention`` — prefill attention (``csrc/flash_attention.cu``),
   replacing ``repro.kernels.flash_attention.flash_attention_pallas``.
-* ``paged_attention`` — decode attention over KV pages
+* ``paged_attention`` — decode attention over bf16/f32 or int8 KV pages
   (``csrc/paged_attention.cu``), replacing
   ``repro.kernels.paged_attention.paged_attention_pallas``.
+* ``ssd_scan`` — the Mamba-2 SSD chunk scan (``csrc/ssd_scan.cu``),
+  replacing ``repro.kernels.ssd_scan.ssd_scan_pallas``.
 * ``sim_decode`` — the fleet DES's fused decode-advance round
   (``csrc/sim_decode.cu``), replacing
   ``repro.kernels.sim_decode.decode_advance_pallas``.

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("flash_attention", "paged_attention", "sim_decode")
+KERNELS = ("flash_attention", "paged_attention", "ssd_scan", "sim_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -43,9 +43,14 @@ SIGNATURES = {
     ),
     "paged_attention": (
         "paged_attention_fwd",
-        # q, k_pages, v_pages, block_tables, lengths, o,
-        # B, H, KH, D, page, pps, scale, q_dtype, kv_dtype, stream
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+        # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, o,
+        # B, H, KH, D, page, pps, scale, q_dtype, kv_dtype, scale_dtype, stream
+        [_P] * 8 + [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+    ),
+    "ssd_scan": (
+        "ssd_scan_fwd",
+        # x, log_a, b, c, y, s_out, B, H, L, P, N, x_dtype, bc_dtype, stream
+        [_P] * 6 + [_I] * 7 + [_P],
     ),
     "sim_decode": (
         "sim_decode_advance",

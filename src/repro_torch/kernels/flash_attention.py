@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-SUPPORTED_HEAD_DIMS = (32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,4 +1,4 @@
-"""Model-layout wrappers around the attention kernels.
+"""Model-layout wrappers around the kernels.
 
 Counterpart of ``repro.kernels.ops``: the model code keeps ``(B, L, H, D)``
 and the kernels take head-major tensors, so these functions swap the layout
@@ -9,17 +9,24 @@ and run the plain PyTorch version on CPU tensors.
 reference's slot cache describes: one layer's slot cache
 ``(n_slots, c_max, K, D)`` is viewed, without a copy, as pages
 ``(n_slots * c_max / 16, 16, K, D)`` with block table
-``bt[b, j] = b * (c_max / 16) + j``.
+``bt[b, j] = b * (c_max / 16) + j``; an int8 cache's scales
+``(n_slots, c_max, K, 1)`` are viewed the same way.
+
+:func:`ssd_scan` folds dt into x in f32, as the reference model's
+``ssd_chunked`` does (the reference's ``ops.ssd_scan`` folds it in x's
+dtype, bf16 in the served model), and hands the kernel f32 x.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
+from repro_torch.kernels import ssd_scan as _ssd
 
 #: KV positions per page of the slot-cache view (the vLLM block size).
 PAGE = 16
@@ -57,11 +64,33 @@ def slot_decode_attention(
     k_cache: torch.Tensor,  # (B, S, K, D) one layer's slot cache
     v_cache: torch.Tensor,
     lengths: torch.Tensor,  # (B,) int32 valid positions per slot
+    k_scale: Optional[torch.Tensor] = None,  # (B, S, K, 1) for an int8 cache
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over one layer's slot cache, as pages; (B, 1, H, D)."""
     b, s, n_kv, d = k_cache.shape
     bt = slot_block_table(b, s, k_cache.device)
-    k_pages = k_cache.view(b * s // PAGE, PAGE, n_kv, d)
-    v_pages = v_cache.view(b * s // PAGE, PAGE, n_kv, d)
-    out = _paged.paged_attention(q[:, 0], k_pages, v_pages, bt, lengths)
+
+    def pages(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        return None if t is None else t.view(b * s // PAGE, PAGE, n_kv, t.shape[-1])
+
+    out = _paged.paged_attention(
+        q[:, 0], pages(k_cache), pages(v_cache), bt, lengths,
+        pages(k_scale), pages(v_scale),
+    )
     return out[:, None]
+
+
+def ssd_scan(
+    x: torch.Tensor,  # (B, L, H, P) — model layout
+    dt: torch.Tensor,  # (B, L, H) positive
+    a_neg: torch.Tensor,  # (H,) negative decay
+    b_mat: torch.Tensor,  # (B, L, N)
+    c_mat: torch.Tensor,  # (B, L, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B, L, H, P) in x's dtype, final state (B, H, P, N) f32)."""
+    dtf = dt.float()
+    xh = (x.float() * dtf[..., None]).transpose(1, 2).contiguous()
+    log_a = (a_neg.float()[None, None, :] * dtf).transpose(1, 2).contiguous()
+    y, s_final = _ssd.ssd_scan(xh, log_a, b_mat.contiguous(), c_mat.contiguous())
+    return y.transpose(1, 2).to(x.dtype), s_final

@@ -1,12 +1,14 @@
 """Decode attention over KV pages: the Hopper kernel
 ``csrc/paged_attention.cu`` and its plain PyTorch version.
 
-Counterpart of ``repro.kernels.paged_attention.paged_attention_pallas``
-(bf16/f32 pages; the int8 pages with per-token scales are not ported yet):
+Counterpart of ``repro.kernels.paged_attention.paged_attention_pallas``:
 one query token per sequence ``(B, H, D)`` against a page pool
 ``(P, page, K, D)`` reached through an int32 block table ``(B, pps)``;
 positions at or past ``lengths`` are masked, and the kernel never loads
-them. Online softmax in f32, output in q's dtype.
+them. Online softmax in f32, output in q's dtype. Pages are bf16 or f32,
+or int8 with one scale per (position, head), ``(P, page, K, 1)`` in f16 or
+f32; the int8 values are dequantized in f32 (``value * scale``) right
+after the load, as the TPU kernel does.
 
 :func:`paged_attention` launches the kernel on CUDA tensors and runs
 :func:`paged_attention_plain` on CPU tensors.
@@ -15,11 +17,16 @@ them. Online softmax in f32, output in q's dtype.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import DTYPE_CODES, SUPPORTED_HEAD_DIMS
+
+#: Codes of the page and scale dtypes in ``csrc/paged_attention.cu``.
+PAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+SCALE_CODES = {torch.float32: 0, torch.float16: 2}
 
 #: Shared memory a CTA may use on sm_90 (bytes).
 MAX_SMEM = 232_448
@@ -32,15 +39,25 @@ def paged_attention_plain(
     v_pages: torch.Tensor,  # (P, page, K, D)
     block_tables: torch.Tensor,  # (B, pps) int32
     lengths: torch.Tensor,  # (B,) int32
+    k_scales: Optional[torch.Tensor] = None,  # (P, page, K, 1) for int8 pages
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Gathers each sequence's pages and runs masked softmax in f32."""
+    """Gathers each sequence's pages (dequantized in f32 where they are
+    int8) and runs masked softmax in f32."""
     b, h, d = q.shape
     _, page, n_kv, _ = k_pages.shape
     pps = block_tables.shape[1]
     g = h // n_kv
     idx = block_tables.long()
-    kg = k_pages[idx].reshape(b, pps * page, n_kv, d).float()
-    vg = v_pages[idx].reshape(b, pps * page, n_kv, d).float()
+    kg = k_pages[idx].float()
+    vg = v_pages[idx].float()
+    if k_pages.dtype == torch.int8:
+        if k_scales is None or v_scales is None:
+            raise ValueError("int8 pages need k_scales and v_scales")
+        kg = kg * k_scales[idx].float()
+        vg = vg * v_scales[idx].float()
+    kg = kg.reshape(b, pps * page, n_kv, d)
+    vg = vg.reshape(b, pps * page, n_kv, d)
     qg = q.reshape(b, n_kv, g, d).float()
     s = torch.einsum("bkgd,bskd->bkgs", qg, kg) * (1.0 / math.sqrt(d))
     pos = torch.arange(pps * page, device=q.device)
@@ -57,18 +74,35 @@ def smem_bytes(h: int, n_kv: int, d: int) -> int:
     return 4 * (2 * g * d + 2 * _TILE * (d + 1) + g * _TILE + 3 * g)
 
 
-def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
+def _check(q, k_pages, v_pages, block_tables, lengths, k_scales=None, v_scales=None) -> None:
     dev = q.device
     tensors = (k_pages, v_pages, block_tables, lengths)
-    if not (q.is_cuda and all(t.device == dev for t in tensors)):
+    scales = tuple(t for t in (k_scales, v_scales) if t is not None)
+    if not (q.is_cuda and all(t.device == dev for t in tensors + scales)):
         raise ValueError("all paged_attention operands must lie on one CUDA device")
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k_pages.dtype not in DTYPE_CODES or v_pages.dtype != k_pages.dtype:
+    if k_pages.dtype not in PAGE_CODES or v_pages.dtype != k_pages.dtype:
         raise TypeError(
-            f"pages must be float32 or bfloat16 of one dtype, got "
+            f"pages must be float32, bfloat16 or int8 of one dtype, got "
             f"{k_pages.dtype}, {v_pages.dtype}"
         )
+    if k_pages.dtype == torch.int8:
+        if len(scales) != 2:
+            raise ValueError("int8 pages need k_scales and v_scales")
+        if k_scales.dtype not in SCALE_CODES or v_scales.dtype != k_scales.dtype:
+            raise TypeError(
+                f"scales must be float16 or float32 of one dtype, got "
+                f"{k_scales.dtype}, {v_scales.dtype}"
+            )
+        want = (*k_pages.shape[:3], 1)
+        if k_scales.shape != want or v_scales.shape != want:
+            raise ValueError(
+                f"scales must be {want}, got {tuple(k_scales.shape)}, "
+                f"{tuple(v_scales.shape)}"
+            )
+    elif scales:
+        raise ValueError(f"{k_pages.dtype} pages take no scales")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -90,7 +124,7 @@ def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
         raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
     if smem_bytes(h, n_kv, d) > MAX_SMEM:
         raise ValueError(f"G={h // n_kv}, D={d} needs more shared memory than a CTA has")
-    if not all(t.is_contiguous() for t in (q, *tensors)):
+    if not all(t.is_contiguous() for t in (q, *tensors, *scales)):
         raise ValueError("paged_attention needs contiguous operands")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged_attention needs 16-byte aligned pages")
@@ -102,22 +136,30 @@ def paged_attention(
     v_pages: torch.Tensor,
     block_tables: torch.Tensor,
     lengths: torch.Tensor,
+    k_scales: Optional[torch.Tensor] = None,
+    v_scales: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over pages: the kernel on CUDA, the plain version
     on the CPU. Block-table entries are trusted to name pages of the pool;
     a length past ``pps * page`` counts as ``pps * page``."""
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pages, v_pages, block_tables, lengths)
-    _check(q, k_pages, v_pages, block_tables, lengths)
+        return paged_attention_plain(
+            q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales
+        )
+    _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     b, h, d = q.shape
     _, page, n_kv, _ = k_pages.shape
+    quant = k_pages.dtype == torch.int8
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = _build.kernel_fn("paged_attention")
     code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quant else None,
+        v_scales.data_ptr() if quant else None,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, h, n_kv, d, page, block_tables.shape[1], 1.0 / math.sqrt(d),
-        DTYPE_CODES[q.dtype], DTYPE_CODES[k_pages.dtype],
+        DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
+        SCALE_CODES[k_scales.dtype] if quant else 0,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("paged_attention", code)

@@ -1,12 +1,15 @@
 """Two-pool serving entry point of the port (the paper's system, end to end).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --requests 40
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
 
-Builds a model (reduced widths unless ``--full-width``), a short pool and a
-long pool, routes a synthetic workload through Algorithm 1 with live EMA
-calibration, and prints per-pool outcomes and router statistics. Runs on
-the GPU; ``--device cpu`` runs the plain PyTorch versions of the kernels.
-Counterpart of ``repro.launch.serve``.
+Builds a model (reduced widths unless ``--full-width``; the dense family,
+or the zamba2 hybrid), a short pool and a long pool, routes a synthetic
+workload through Algorithm 1 with live EMA calibration, and prints
+per-pool outcomes and router statistics. Runs on the GPU; ``--device cpu``
+runs the plain PyTorch versions of the kernels. Counterpart of
+``repro.launch.serve``; :func:`run_workload` drives any ``TwoPoolServer``
+(an int8-KV model, say) with the same draw.
 """
 
 from __future__ import annotations
@@ -52,7 +55,16 @@ def serve(
         long_slots=long_slots,
         sampling=SamplingParams(temperature=temperature),
     )
+    return run_workload(srv, requests=requests, seed=seed)
 
+
+def run_workload(srv: TwoPoolServer, *, requests: int, seed: int = 0) -> dict:
+    """Drive ``srv`` with the synthetic draw (prompts of 4 to short c_max/2
+    tokens, ~10% asking for 0.6 of the long c_max in output) and print
+    what ``serve`` prints."""
+    cfg = srv.short_engine.model.cfg
+    dev = srv.short_engine.device
+    short_cmax, long_cmax = srv.short_engine.c_max, srv.long_engine.c_max
     rng = np.random.default_rng(seed)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

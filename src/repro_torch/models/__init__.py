@@ -1,4 +1,4 @@
-"""Model stack of the port (dense family)."""
+"""Model stack of the port (dense and hybrid families)."""
 
 from repro_torch.models.model_zoo import Model
 from repro_torch.models.params import ParamDef, init_params, params_from_numpy

@@ -74,6 +74,8 @@ def decode_attention(
     k_cache: torch.Tensor,  # (B, S, K, D)
     v_cache: torch.Tensor,  # (B, S, K, D)
     cur_len: torch.Tensor | int,  # valid cache length (scalar or (B,))
+    k_scale: torch.Tensor | None = None,  # (B, S, K, 1) for an int8 cache
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One-step attention over the slot cache; positions ≥ cur_len are
     masked (and never read by the kernel)."""
@@ -82,4 +84,4 @@ def decode_attention(
         lengths = torch.full((b,), cur_len, dtype=torch.int32, device=q.device)
     else:
         lengths = cur_len.to(device=q.device, dtype=torch.int32).expand(b).contiguous()
-    return ops.slot_decode_attention(q, k_cache, v_cache, lengths)
+    return ops.slot_decode_attention(q, k_cache, v_cache, lengths, k_scale, v_scale)

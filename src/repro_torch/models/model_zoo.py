@@ -1,36 +1,48 @@
-"""Model facade (counterpart of ``repro.models.model_zoo``), dense family.
+"""Model facade (counterpart of ``repro.models.model_zoo``): the dense and
+hybrid families.
 
-``Model(cfg)`` exposes ``init`` / ``forward`` / ``prefill`` /
-``decode_step`` / ``init_cache``. Any other family raises
-``NotImplementedError``: the reference's MoE, VLM, audio, hybrid and SSM
-stacks are later slices of the port (ROADMAP.md, queue A, item A9).
+``Model(cfg, kv_dtype=...)`` exposes ``init`` / ``forward`` / ``prefill`` /
+``decode_step`` / ``init_cache`` and the slot axis of every decode-state
+leaf (``cache_batch_axes``). The dense family runs ``transformer``, the
+hybrid family (zamba2) ``hybrid``. Any other family raises
+``NotImplementedError``: the reference's MoE, VLM, audio and xLSTM stacks
+are later slices of the port (ROADMAP.md, queue A, item A11).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.models.params import init_params, param_bytes, param_count
 
-#: dtype of the KV cache, whatever the parameters' dtype (the reference
-#: derives its cache from the bf16 abstract parameters).
-KV_DTYPE = torch.bfloat16
+KV_DTYPES = ("bf16", "int8")
 
 
 @dataclasses.dataclass
 class Model:
-    """The KV cache is bf16 (the reference's default ``kv_dtype``); its
-    int8 cache needs the int8 paged kernel, not ported yet."""
+    """``kv_dtype="int8"`` (dense family) keeps the KV cache as int8 with
+    one f16 scale per (position, head), as the reference's ``Model`` does."""
 
     cfg: ArchConfig
+    kv_dtype: str = "bf16"
 
     def __post_init__(self) -> None:
-        self.defs = transformer.transformer_defs(self.cfg)
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype {self.kv_dtype!r} not in {KV_DTYPES}")
+        if self.cfg.family == "hybrid":
+            if self.kv_dtype != "bf16":
+                raise NotImplementedError("the hybrid family keeps a bf16 KV cache")
+            self._mod, self._kw = hybrid, {}
+            self.defs = hybrid.hybrid_defs(self.cfg)
+        else:
+            self._mod, self._kw = transformer, {"kv_dtype": self.kv_dtype}
+            self.defs = transformer.transformer_defs(self.cfg)  # raises for the rest
 
     # -- parameters ----------------------------------------------------------
     def init(self, seed: int = 0, *, device: str | torch.device = "cuda") -> dict:
@@ -44,24 +56,32 @@ class Model:
 
     # -- apply ----------------------------------------------------------------
     def forward(self, params: dict, batch: dict):
-        return transformer.forward(params, self.cfg, batch)
+        return self._mod.forward(params, self.cfg, batch)
 
     def prefill(self, params: dict, batch: dict):
-        return transformer.prefill(params, self.cfg, batch)
+        return self._mod.prefill(params, self.cfg, batch, **self._kw)
 
-    def decode_step(self, params: dict, caches: tuple, batch: dict):
-        return transformer.decode_step(params, self.cfg, caches, batch)
+    def decode_step(self, params: dict, caches: Any, batch: dict):
+        return self._mod.decode_step(params, self.cfg, caches, batch, **self._kw)
 
     # -- decode state -----------------------------------------------------------
     def init_cache(
-        self, cell: ShapeCell, *, device: str | torch.device = "cuda"
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Zero (k, v) caches for a decode cell, each
-        (n_layers, global_batch, seq_len, K, head_dim) in bf16."""
-        cfg = self.cfg
-        shape = (cfg.n_layers, cell.global_batch, cell.seq_len, cfg.n_kv_heads, cfg.head_dim)
-        dev = resolve_device(device)
-        return (
-            torch.zeros(shape, dtype=KV_DTYPE, device=dev),
-            torch.zeros(shape, dtype=KV_DTYPE, device=dev),
+        self,
+        cell: ShapeCell,
+        *,
+        device: str | torch.device = "cuda",
+        act_dtype: torch.dtype = torch.bfloat16,
+    ) -> Any:
+        """Zero decode state for a decode cell (``global_batch`` slots of
+        ``seq_len`` positions) of a model whose activations are
+        ``act_dtype``, laid out by the family's module
+        (``transformer.init_cache``, ``hybrid.init_cache``)."""
+        return self._mod.init_cache(
+            self.cfg, cell.global_batch, cell.seq_len, act_dtype=act_dtype,
+            device=resolve_device(device), **self._kw,
         )
+
+    def cache_batch_axes(self) -> Any:
+        """The slot axis of each decode-state leaf, as a tree shaped like
+        :meth:`init_cache`'s (the reference's ``SlotKVCache.batch_axes``)."""
+        return self._mod.cache_batch_axes(**self._kw)

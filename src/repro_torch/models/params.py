@@ -126,5 +126,9 @@ def stack_defs(d: ParamDef, n: int, axis_name: Optional[str] = "layers") -> Para
     return dataclasses.replace(d, shape=(n, *d.shape), axes=(axis_name, *d.axes))
 
 
-def stack_tree(defs: dict, n: int, axis_name: Optional[str] = "layers") -> dict:
-    return {k: stack_defs(d, n, axis_name) for k, d in defs.items()}
+def stack_tree(defs: Any, n: int, axis_name: Optional[str] = "layers") -> Any:
+    """Prepend a stacking dimension to every ParamDef of a nested tree (the
+    hybrid stacks its Mamba blocks twice: groups, then blocks per group)."""
+    if isinstance(defs, ParamDef):
+        return stack_defs(defs, n, axis_name)
+    return {k: stack_tree(d, n, axis_name) for k, d in defs.items()}

@@ -3,10 +3,11 @@
 
 Covers the dense llama-style stack the reference shares with yi-6b,
 granite-3-8b, granite-34b, gemma-2b and llama3-70b: RMS norm, GQA
-self-attention with half-split RoPE, gated or plain MLP, bf16 KV cache. The layer
-stack is a Python loop over the stacked ``blocks`` parameters (the
-reference ``lax.scan``s over them). MoE, cross-attention, M-RoPE and the
-int8 KV cache are later slices.
+self-attention with half-split RoPE, gated or plain MLP, and a bf16 KV
+cache or (``kv_dtype="int8"``) an int8 one with one f16 scale per
+(position, head). The layer stack is a Python loop over the stacked
+``blocks`` parameters (the reference ``lax.scan``s over them). MoE,
+cross-attention and M-RoPE are later slices.
 
 Decode updates the KV cache tensors in place (the reference returns new
 arrays); the caches it returns are the ones it was given.
@@ -29,6 +30,9 @@ from repro_torch.models.layers import (
     rope_angles,
 )
 from repro_torch.models.params import ParamDef, stack_tree
+
+#: dtype of a KV cache that is not int8.
+KV_DTYPE = torch.bfloat16
 
 # ---------------------------------------------------------------------------
 # Parameter declarations
@@ -63,12 +67,12 @@ def check_dense(cfg: ArchConfig) -> None:
     if cfg.family != "dense" or cfg.is_moe or cfg.cross_attention:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md, queue A, item A9)"
+            "(ROADMAP.md, queue A, item A11)"
         )
     if cfg.pos_type != "rope" or cfg.frontend != "tokens":
         raise NotImplementedError(
             f"{cfg.name}: pos_type {cfg.pos_type!r} / frontend "
-            f"{cfg.frontend!r} are not ported yet (ROADMAP.md, A9)"
+            f"{cfg.frontend!r} are not ported yet (ROADMAP.md, A11)"
         )
     if cfg.n_codebooks > 0:
         raise NotImplementedError(f"{cfg.name}: codebook heads are not ported yet")
@@ -86,6 +90,35 @@ def transformer_defs(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), ("embed", "vocab"), init="scaled")
     return defs
+
+
+def init_cache(
+    cfg: ArchConfig,
+    batch: int,
+    seq_len: int,
+    *,
+    act_dtype: torch.dtype,
+    kv_dtype: str,
+    device: torch.device,
+) -> tuple:
+    """Zero slot caches: ``(k, v)``, each (n_layers, B, S, K, head_dim) in
+    bf16 whatever the activations' dtype ``act_dtype`` (the reference
+    derives its cache from the bf16 abstract parameters); for int8 ``(k, v,
+    k_scale, v_scale)``, the scales (n_layers, B, S, K, 1) f16."""
+    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    if kv_dtype == "int8":
+        scale = (*shape[:-1], 1)
+        return tuple(
+            torch.zeros(sh, dtype=dt, device=device)
+            for sh, dt in ((shape, torch.int8), (shape, torch.int8),
+                           (scale, torch.float16), (scale, torch.float16))
+        )
+    return tuple(torch.zeros(shape, dtype=KV_DTYPE, device=device) for _ in range(2))
+
+
+def cache_batch_axes(kv_dtype: str = "bf16") -> tuple:
+    """The slot axis of each cache tensor."""
+    return (1,) * (4 if kv_dtype == "int8" else 2)
 
 
 # ---------------------------------------------------------------------------
@@ -114,24 +147,51 @@ def _out_proj(o: torch.Tensor, p: dict) -> torch.Tensor:
     return o.reshape(b, l, -1) @ w_o.reshape(-1, w_o.shape[-1])
 
 
-def _self_attention_full(x, p, cos, sin, cfg: ArchConfig):
-    """Train/prefill self-attention over the whole sequence."""
+def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(position, head) symmetric int8 quantization over the last axis:
+    f32 amax, round half to even, clip to ±127; the scale (..., 1) in f16."""
+    tf = t.float()
+    amax = tf.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp(min=1e-6) / 127.0
+    q = torch.clamp(torch.round(tf / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (q.float() * scale.float()).to(torch.bfloat16)
+
+
+def _self_attention_full(x, p, cos, sin, cfg: ArchConfig, kv_dtype: str = "bf16"):
+    """Train/prefill self-attention over the whole sequence; the cache it
+    returns is (k, v), or quantized (k, v, k_scale, v_scale) for int8."""
     xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(xn, p)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     o = flash_attention(q, k, v, causal=True)
+    if kv_dtype == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return x + _out_proj(o, p), (kq, vq, ks, vs)
     return x + _out_proj(o, p), (k, v)
 
 
-def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, k_cache, v_cache, rows, write, lengths):
-    """Single-token decode: write this token's K/V at ``write`` in place,
-    then attend over the first ``lengths`` positions of each slot."""
+def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, cache, rows, write, lengths):
+    """Single-token decode: write this token's K/V (quantized, for an int8
+    cache) at ``write`` in place, then attend over the first ``lengths``
+    positions of each slot; the paged kernel reads int8 pages and their
+    scales as they are."""
     xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(xn, p)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    k_cache[rows, write] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, write] = v[:, 0].to(v_cache.dtype)
-    o = decode_attention(q, k_cache, v_cache, lengths)
+    k_cache, v_cache = cache[:2]
+    scales = cache[2:]
+    if scales:
+        kvq, kvs = quantize_kv(torch.stack([k[:, 0], v[:, 0]]))  # both in one pass
+        k_cache[rows, write], v_cache[rows, write] = kvq[0], kvq[1]
+        scales[0][rows, write], scales[1][rows, write] = kvs[0], kvs[1]
+    else:
+        k_cache[rows, write] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, write] = v[:, 0].to(v_cache.dtype)
+    o = decode_attention(q, k_cache, v_cache, lengths, *scales)
     return x + _out_proj(o, p)
 
 
@@ -158,15 +218,16 @@ def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return heads_lib.lm_logits(x, params["lm_head"], valid_vocab=vv)
 
 
-def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
-    """Embedding + every layer over the whole sequence → (x, [(k, v)])."""
+def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor, kv_dtype: str = "bf16"):
+    """Embedding + every layer over the whole sequence → (x, per-layer
+    caches)."""
     x = _embed_input(params, cfg, tokens)
     b, length = tokens.shape
     pos = torch.arange(length, device=x.device).expand(b, length)
     cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     kvs = []
     for p in _layers(params):
-        x, kv = _self_attention_full(x, p, cos, sin, cfg)
+        x, kv = _self_attention_full(x, p, cos, sin, cfg, kv_dtype)
         x = _mlp_sublayer(x, p, cfg)
         kvs.append(kv)
     return x, kvs
@@ -179,10 +240,13 @@ def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, t
     return _head(params, cfg, x), torch.zeros((), device=x.device)
 
 
-def prefill(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, tuple]:
-    """Prefill pass → (last-position logits (B, V), (k, v) caches stacked
-    over layers, each (n_layers, B, L, K, D))."""
-    x, kvs = _run_full(params, cfg, batch["tokens"])
+def prefill(
+    params: dict, cfg: ArchConfig, batch: dict, *, kv_dtype: str = "bf16"
+) -> tuple[torch.Tensor, tuple]:
+    """Prefill pass → (last-position logits (B, V), caches stacked over
+    layers: (k, v), each (n_layers, B, L, K, D); for int8, (k, v, k_scale,
+    v_scale) with the scales (n_layers, B, L, K, 1) f16)."""
+    x, kvs = _run_full(params, cfg, batch["tokens"], kv_dtype)
     # "last_pos" supports right-padded prompts (serving buckets): logits are
     # taken at the true last prompt token, not the padded end.
     if "last_pos" in batch:
@@ -192,15 +256,20 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, t
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _head(params, cfg, x)
-    caches = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]))
+    caches = tuple(torch.stack(leaves) for leaves in zip(*kvs))
     return logits[:, 0], caches
 
 
-def decode_step(params: dict, cfg: ArchConfig, caches: tuple, batch: dict) -> tuple[torch.Tensor, tuple]:
+def decode_step(
+    params: dict, cfg: ArchConfig, caches: tuple, batch: dict, *, kv_dtype: str = "bf16"
+) -> tuple[torch.Tensor, tuple]:
     """One decode iteration. ``batch["index"]`` is the write position, a
     scalar or one per sequence; caches are ``(k, v)``, each
-    ``(n_layers, B, S, K, D)``, and are updated in place."""
-    k_all, v_all = caches
+    ``(n_layers, B, S, K, D)``, or for int8 ``(k, v, k_scale, v_scale)``,
+    and are updated in place."""
+    if len(caches) != (4 if kv_dtype == "int8" else 2):
+        raise ValueError(f"{len(caches)} cache tensors for kv_dtype {kv_dtype!r}")
+    k_all = caches[0]
     x = _embed_input(params, cfg, batch["tokens"])
     b = x.shape[0]
     index = torch.as_tensor(batch["index"], device=x.device).long().expand(b)
@@ -210,7 +279,7 @@ def decode_step(params: dict, cfg: ArchConfig, caches: tuple, batch: dict) -> tu
     write = index.clamp(max=k_all.shape[2] - 1)
     rows = torch.arange(b, device=x.device)
     for i, p in enumerate(_layers(params)):
-        x = _self_attention_decode(x, p, cos, sin, cfg, k_all[i], v_all[i], rows, write, lengths)
+        x = _self_attention_decode(x, p, cos, sin, cfg, [c[i] for c in caches], rows, write, lengths)
         x = _mlp_sublayer(x, p, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, x)[:, 0], caches

@@ -4,7 +4,9 @@ Counterpart of ``repro.serving.engine``: ``n_seq`` slots, one decode token
 per active slot per iteration, prompt prefill on admission. Where the
 reference ``vmap``s a single-sequence decode over the slot axis, the port
 runs one decode over an explicit slot batch dimension with a per-slot
-``index`` tensor, so every slot writes its KV at its own position.
+``index`` tensor, so every slot writes its KV at its own position (both
+families). Dense prompts are right-padded to ``prompt_bucket`` tokens;
+hybrid prompts go unpadded, since pad tokens would enter the SSM state.
 
 Every decode step runs all ``n_slots`` rows, free ones included (their
 token and index are stale and their outputs ignored), as the reference
@@ -75,7 +77,9 @@ class ServingEngine:
         self.n_slots = n_slots
         self.sampling = sampling
         self.prompt_bucket = prompt_bucket
-        self.cache = SlotKVCache(model, c_max, n_slots, device=self.device)
+        self.cache = SlotKVCache(
+            model, c_max, n_slots, device=self.device, act_dtype=params["embed"].dtype
+        )
         self.alloc = SlotAllocator(n_slots)
         self.queue: deque[ServeRequest] = deque()
         self.slots: dict[int, _SlotState] = {}
@@ -109,13 +113,16 @@ class ServingEngine:
             req = self.queue.popleft()
             slot = self.alloc.alloc()
             n = len(req.tokens)
-            pad = bucket_length(n, multiple=self.prompt_bucket, max_len=self.c_max)
-            padded = np.zeros((1, pad), np.int64)
-            padded[0, :n] = req.tokens
-            batch = {
-                "tokens": torch.from_numpy(padded).to(self.device),
-                "last_pos": torch.tensor([n - 1], device=self.device),
-            }
+            if self.model.cfg.family == "hybrid":
+                batch = {"tokens": torch.tensor([req.tokens], device=self.device)}
+            else:
+                pad = bucket_length(n, multiple=self.prompt_bucket, max_len=self.c_max)
+                padded = np.zeros((1, pad), np.int64)
+                padded[0, :n] = req.tokens
+                batch = {
+                    "tokens": torch.from_numpy(padded).to(self.device),
+                    "last_pos": torch.tensor([n - 1], device=self.device),
+                }
             logits, prefill_state = self.model.prefill(self.params, batch)
             self.cache.insert_prefill(slot, prefill_state)
             first = int(sample(logits, req.request_id, self.sampling)[0])

@@ -1,16 +1,21 @@
 """Slot-based KV cache management (counterpart of ``repro.serving.kv_cache``).
 
 Each pool instance reserves ``n_seq`` slots of ``c_max`` tokens — the
-provisioning rule of paper Eq. 1–2. The decode state is one ``(k, v)`` pair
-of tensors, each ``(n_layers, n_slots, c_max, K, head_dim)`` in bf16; a
-prefill result is copied into its slot in place. Each layer's slice is the
-page pool of the paged decode kernel (``kernels/ops.slot_decode_attention``).
+provisioning rule of paper Eq. 1–2. The decode state is the model's tree
+of tensors (:meth:`Model.init_cache`), each with its slot axis where
+:meth:`Model.cache_batch_axes` says (the reference's per-leaf
+``batch_axes``): for the dense family ``(k, v)`` or, with an int8 cache,
+``(k, v, k_scale, v_scale)``, each ``(n_layers, n_slots, c_max, K, ·)``;
+for the hybrid its shared attention's k/v and its Mamba blocks' conv and
+SSD states. A prefill result is copied into its slot in place. Each
+layer's attention slice is the page pool of the paged decode kernel
+(``kernels/ops.slot_decode_attention``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -50,7 +55,13 @@ class SlotKVCache:
     """Batched decode state with slot-indexed insertion."""
 
     def __init__(
-        self, model: Model, c_max: int, n_slots: int, *, device: str | torch.device = "cuda"
+        self,
+        model: Model,
+        c_max: int,
+        n_slots: int,
+        *,
+        device: str | torch.device = "cuda",
+        act_dtype: torch.dtype = torch.bfloat16,
     ) -> None:
         self.model = model
         self.c_max = c_max
@@ -58,13 +69,27 @@ class SlotKVCache:
         self.cell = ShapeCell(
             name="serving", kind="decode", seq_len=c_max, global_batch=n_slots
         )
-        self.state = model.init_cache(self.cell, device=device)
+        self.state = model.init_cache(self.cell, device=device, act_dtype=act_dtype)
+        self.batch_axes = model.cache_batch_axes()
 
-    def insert_prefill(self, slot: int, prefill_state: tuple) -> None:
-        """Copy a single-sequence prefill state (batch dim 1, length ≤ c_max)
-        into a slot, cast to the cache dtype."""
-        for target, src in zip(self.state, prefill_state):
-            target[:, slot, : src.shape[2]] = src[:, 0].to(target.dtype)
+    def insert_prefill(self, slot: int, prefill_state: Any) -> None:
+        """Copy a single-sequence prefill state (slot axis of size 1) into a
+        slot, cast to the cache dtype: each leaf whole, or for the attention
+        caches their first L ≤ c_max positions."""
+        for target, src, axis in zip(_leaves(self.state), _leaves(prefill_state),
+                                     _leaves(self.batch_axes)):
+            dst = target.select(axis, slot)
+            part = src.select(axis, 0)
+            dst[tuple(slice(0, n) for n in part.shape)] = part.to(target.dtype)
+
+
+def _leaves(tree: Any) -> list:
+    """Leaves of a tree of dicts and tuples, dict keys in sorted order."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for item in tree for leaf in _leaves(item)]
+    return [tree]
 
 
 def bucket_length(n: int, *, multiple: int = 128, max_len: int = 1 << 20) -> int:

@@ -29,6 +29,7 @@ from repro_torch.kernels.sim_decode import (  # noqa: E402
     decode_advance_plain,
     random_state,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,8 @@ FLASH_CASES = [
     (2, 256, 8, 2, 64, torch.bfloat16, 2e-2),
     (1, 200, 6, 2, 64, torch.float32, 2e-5),  # ragged length
     (1, 1024, 32, 4, 128, torch.bfloat16, 2e-2),  # yi-6b widths
+    (1, 256, 32, 32, 80, torch.bfloat16, 2e-2),  # zamba2's shared attention
+    (2, 200, 4, 4, 80, torch.float32, 2e-5),  # D = 80, ragged length
 ]
 
 PAGED_CASES = [
@@ -53,6 +56,26 @@ PAGED_CASES = [
     (2, 8, 1, 128, 16, 4, torch.float32, torch.float32, 2e-5),  # MQA
     (3, 4, 4, 32, 32, 4, torch.float32, torch.bfloat16, 2e-5),
     (8, 32, 4, 128, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2),  # yi-6b
+    (8, 32, 32, 80, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2),  # zamba2
+    (3, 4, 4, 80, 16, 4, torch.float32, torch.float32, 2e-5),
+]
+
+INT8_CASES = [
+    # (B, H, K, D, page, pages_per_seq, q dtype, scale dtype, tol): the
+    # kernel and the plain version dequantize alike (int8 * scale in f32)
+    (8, 32, 4, 128, 16, 32, torch.bfloat16, torch.float16, 2e-2),  # yi-6b, f16 scales
+    (8, 32, 4, 128, 16, 32, torch.float32, torch.float16, 2e-5),  # yi-6b widths, f32 q
+    (3, 8, 2, 64, 16, 4, torch.float32, torch.float32, 2e-5),  # the reference test's shape
+    (2, 32, 32, 80, 16, 8, torch.float32, torch.float16, 2e-5),  # D = 80
+]
+
+SSD_CASES = [
+    # (B, L, H, P, N, x dtype, B/C dtype, atol, rtol): f32 differs from the
+    # plain version by summation order; bf16 y rounds an f32 result
+    (1, 256, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),  # zamba2 prefill
+    (1, 200, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),  # ragged tail
+    (2, 1, 4, 32, 16, torch.float32, torch.float32, 1e-4, 1e-4),  # one step
+    (2, 130, 3, 16, 8, torch.bfloat16, torch.bfloat16, 2e-2, 2**-7),
 ]
 
 
@@ -108,6 +131,71 @@ def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, case):
     assert torch.equal(paged_attention(q, kp, vp, bt, lengths), out)
 
 
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_paged_kernel_matches_plain_and_skips_dead_pages(cuda, case):
+    B, H, K, D, page, pps, qdt, sdt, tol = case
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    total = B * pps * 2
+    q = _randn(gen, (B, H, D), qdt, cuda)
+    kp = torch.randint(-127, 128, (total, page, K, D), generator=gen, device=cuda, dtype=torch.int8)
+    vp = torch.randint(-127, 128, (total, page, K, D), generator=gen, device=cuda, dtype=torch.int8)
+    ks = (torch.rand((total, page, K, 1), generator=gen, device=cuda) * 0.02 + 1e-3).to(sdt)
+    vs = (torch.rand((total, page, K, 1), generator=gen, device=cuda) * 0.02 + 1e-3).to(sdt)
+    bt = torch.randperm(total, generator=gen, device=cuda)[: B * pps]
+    bt = bt.view(B, pps).to(torch.int32).contiguous()
+    lengths = torch.randint(1, pps * page + 1, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, bt, lengths, ks, vs)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), paged_attention_plain(q, kp, vp, bt, lengths, ks, vs).float(),
+        atol=tol, rtol=0,
+    )
+    for b in range(B):  # poison every scale past each length: never read
+        dead = bt[b, math.ceil(int(lengths[b]) / page):].long()
+        ks[dead] = float("nan")
+        vs[dead] = float("nan")
+    assert torch.equal(paged_attention(q, kp, vp, bt, lengths, ks, vs), out)
+
+
+def _ssd_inputs(gen, B, L, H, P, N, xdt, bcdt, device):
+    """Inputs as the model gives them: x already times dt, log_a = A * dt."""
+    dt = torch.rand((B, H, L), generator=gen, device=device) * 0.19 + 0.01
+    a = -(torch.rand((H,), generator=gen, device=device) * 1.5 + 0.5)
+    x = (torch.randn((B, H, L, P), generator=gen, device=device) * dt[..., None]).to(xdt)
+    log_a = (a[None, :, None] * dt).contiguous()
+    bm = torch.randn((B, L, N), generator=gen, device=device).to(bcdt)
+    cm = torch.randn((B, L, N), generator=gen, device=device).to(bcdt)
+    return x, log_a, bm, cm
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_scan_kernel_matches_plain(cuda, case):
+    B, L, H, P, N, xdt, bcdt, atol, rtol = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    args = _ssd_inputs(gen, B, L, H, P, N, xdt, bcdt, cuda)
+    before = ssd_scan.launches
+    y, s = ssd_scan(*args)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == xdt and s.dtype == torch.float32 and s.shape == (B, H, P, N)
+    yp, sp = ssd_scan_plain(*args)
+    torch.testing.assert_close(y.float(), yp.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(s, sp, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, log_a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 16, 8, torch.float32, torch.float32, cuda)
+    with pytest.raises(TypeError, match="log_a"):
+        ssd_scan(x, log_a.double(), bm, cm)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ssd_scan(x[..., :14].contiguous(), log_a, bm, cm)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssd_scan(x, log_a.cpu(), bm, cm)
+
+
 def test_slot_decode_runs_the_kernel(cuda):
     gen = torch.Generator(device=cuda).manual_seed(2)
     q = _randn(gen, (4, 1, 8, 64), torch.bfloat16, cuda)
@@ -132,6 +220,15 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 64, 64, device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q, causal=False)
+    q = torch.zeros(2, 4, 64, device=cuda)
+    pages = torch.zeros(4, 16, 2, 64, device=cuda, dtype=torch.int8)
+    bt = torch.zeros(2, 2, device=cuda, dtype=torch.int32)
+    lengths = torch.ones(2, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="scales"):
+        paged_attention(q, pages, pages, bt, lengths)
+    scales = torch.ones(4, 16, 2, 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="scales"):
+        paged_attention(q, pages, pages, bt, lengths, scales, scales)
 
 
 SIM_DECODE_ARGS = ("t_limit", "busy", "now", "nact", "free", "occ", "pre", "sq", "inp",

@@ -256,7 +256,7 @@ def test_init_cache_is_bf16_slot_layout():
 
 def test_other_families_raise():
     for cfg in REGISTRY.values():
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "hybrid"):
             Model(cfg.reduced())
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
