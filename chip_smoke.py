@@ -5,20 +5,26 @@
 From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 
 1. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` into
-   ``build/`` (one nvcc per source, all at once) and prints the build time;
+   ``build/`` (one nvcc per source, all at once), prints the build time and
+   each library's count of ``HGMMA`` (wgmma) instructions in its SASS
+   (``cuobjdump``); the flash library must have some;
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving paths give it (bf16; yi-6b's head_dim 128, zamba2's
    80, yi-6b's int8 pages with f16 scales; zamba2's SSD scan at its prompt
-   lengths, a ragged one included), with the tolerance printed, and times
-   the kernel, the plain version and, where one exists, one PyTorch call
-   computing the same function as a yardstick (the port never calls it);
+   lengths, a ragged one included) and at the long-pool shapes (flash at
+   yi-6b L=4096, paged at 2 slots x 65,536), with the tolerance, flash's
+   variant and paged's split count printed, and times the kernel, the
+   plain version and, where one exists, one PyTorch call computing the same
+   function as a yardstick (the port never calls it);
 3. serves 16 requests through the port's ``TwoPoolServer`` on full-width
    yi-6b (random bf16 weights from a seed): short pool c_max 512 with 8
    slots, long pool c_max 2048 with 2 slots. The kernels' launch counters
-   are set to 0 just before and read just after; each must be > 0. Then
-   profiles ten decode steps of the short pool with all slots busy (step
-   time, the device's busy share, kernels by device time), and holds one
-   request's decode-step logits against a full ``forward`` recompute;
+   are set to 0 just before and read just after; each must be > 0, and
+   flash's tensor-core variant must have run. Then profiles ten decode
+   steps of the short pool with all slots busy (step time, the device's
+   busy share, kernels by device time; kernels per step may not exceed
+   ``MAX_KERNELS_PER_STEP``), and holds one request's decode-step logits
+   against a full ``forward`` recompute;
 4. the same on yi-6b with an int8 KV cache (``Model(cfg,
    kv_dtype="int8")``, the same weights and draw): the int8 paged kernel
    must run, and its decode logits are held against the bf16 forward;
@@ -37,8 +43,11 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    runs a shorter routed trace on the card and on the CPU, whose records
    and loop counters must be equal bit for bit; and profiles a short
    routed run (device busy share, kernels per round);
-7. prints the kernels' JSON line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+7. prints the earlier design's times at the JSON line's flash and paged
+   shapes on a line of their own (``[prior]``, copied from PERF.md, not
+   measured here), the kernels' JSON line (each flash and paged entry also
+   carries its variant or split count), the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without a GPU, and a directory without the repository.
@@ -49,6 +58,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +77,7 @@ from repro_torch.core.pools import (  # noqa: E402
     n_seq_for_cmax,
 )
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
@@ -74,6 +85,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
+    split_count,
 )
 from repro_torch.kernels.sim_decode import (  # noqa: E402
     OUTPUTS,
@@ -99,12 +111,16 @@ PEAK_BYTES = 3.35e12
 # result; at |o| < 4 a bf16 ulp is 2**-6, so 2e-2 allows about one ulp plus
 # f32 summation-order noise.
 KERNEL_TOL = 2e-2
-# The int8 paged kernel and its plain version dequantize alike and differ
-# only by f32 summation order before the one bf16 rounding, so they are held
-# to INT8_ULPS bf16 ulps at the plain output's largest magnitude (at most
-# 7.8e-3 while |o| < 1): a wrong position's or tensor's scale moves outputs
-# by ~10 % of their value and fails it.
-INT8_ULPS = 2
+# An absolute limit says little where outputs are small (a row averaging
+# thousands of positions has |o| ~ 0.02), so every bf16 flash and paged row
+# is also held, row by row (one query's output of one head), to ROW_ULPS
+# bf16 ulps at that row's largest plain magnitude. Paged decode (bf16 and
+# int8 pages) computes in f32 like its plain version, so the two differ by
+# one rounding to bf16 (at most 1 ulp) and f32 noise; flash rounds P to
+# bf16 for the tensor cores (2**-9 relative a probability, ~0.001 of a
+# row's spread after averaging). A share or tile weighed wrongly moves a
+# row by far more.
+ROW_ULPS = 2
 # Decode-step logits against a full-forward recompute, both bf16 at full
 # width (see logits_check): the two paths round different GEMM shapes
 # (M = slots vs M = L) and run different attention kernels; each rounding
@@ -128,6 +144,20 @@ SERVE = dict(
 #: Launch counters, by the name the JSON line gives each kernel's wrapper.
 COUNTERS = {"flash_attention": flash_attention, "paged_attention": paged_attention,
             "ssd_scan": ssd_scan}
+#: Kernels per decode step (8 busy slots) that the profiled steps may not
+#: exceed: the counts the served paths had before the attention kernels
+#: were redesigned (the split combines inside the paged launch).
+MAX_KERNELS_PER_STEP = {"profile": 1665, "profile-int8": 2081, "profile-hybrid": 3910}
+#: The earlier design's device times (ms) at the JSON line's shapes, read
+#: on the same card model (NVIDIA H100 80GB HBM3, 700 W; PERF.md's table);
+#: printed on their own line, never in the kernels' JSON line.
+PRIOR_MS = {"flash_attention": 0.1287, "flash_attention_d80": 0.0835,
+            "paged_attention": 0.0677, "paged_attention_d80": 0.0334,
+            "paged_attention_int8": 0.0626}
+#: The paged rows: (name, slots, c_max); the long-pool row runs at yi-6b's
+#: widths only (bf16 and int8 pages).
+POOLS = (("short", 8, 512), ("long", 2, 2048))
+LONG_POOL = ("long64k", 2, 65_536)
 
 # The paper's Table 2 fleet (1,000 req/s, B_short = 8192) on the DES.
 # ``requests`` is the routed and homogeneous runs' trace length, ``cross``
@@ -168,10 +198,24 @@ def time_ms(fn, *, iters: int = 20, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bf16_ulps(ref: torch.Tensor, n: int) -> float:
-    """``n`` bf16 ulps at ``ref``'s largest magnitude."""
-    top = ref.float().abs().max().item()
-    return n * 2.0 ** (math.floor(math.log2(top)) - 7)
+def row_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """The worst row's max |out - ref|, in bf16 ulps at that row's largest
+    |ref| (a row: the last dimension)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs().amax(-1)
+    top = ref.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return (err / torch.exp2(torch.floor(torch.log2(top)) - 7)).max().item()
+
+
+def check_close(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple[float, float]:
+    """Holds a bf16 output to KERNEL_TOL and to ROW_ULPS a row; returns the
+    max abs error and the worst row's ulps."""
+    err = (out.float() - ref.float()).abs().max().item()
+    ulps = row_ulps(out, ref)
+    if not (err <= KERNEL_TOL and ulps <= ROW_ULPS):
+        fail(f"{what}: max |kernel - plain| {err} (limit {KERNEL_TOL}), worst row "
+             f"{ulps:.3g} bf16 ulps of its largest value (limit {ROW_ULPS})")
+    return err, ulps
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
@@ -191,9 +235,7 @@ def flash_phase(dev, flush, *, heads: tuple[int, int, int], lengths: tuple[int, 
         v = torch.randn(1, K, L, D, generator=gen, device=dev).to(torch.bfloat16)
         out = flash_attention(q, k, v, causal=True)
         torch.cuda.synchronize()
-        err = (out.float() - flash_attention_plain(q, k, v).float()).abs().max().item()
-        if not err <= KERNEL_TOL:
-            fail(f"flash {tag} L={L}: max |kernel - plain| {err} > {KERNEL_TOL}")
+        err, ulps = check_close(out, flash_attention_plain(q, k, v), f"flash {tag} L={L}")
         nbytes = 2 * (2 * H * L * D + 2 * K * L * D)  # q, o, k, v in bf16
         flops = 4 * H * D * (L * (L + 1) // 2)  # QK^T and PV over causal pairs
         bnd, by = bound_ms(nbytes, flops)
@@ -209,24 +251,27 @@ def flash_phase(dev, flush, *, heads: tuple[int, int, int], lengths: tuple[int, 
             ),
             bound_ms=bnd, bound_by=by,
         )
+        row["variant"] = flash_mod.variant(D, q.dtype)
         rows[L] = row
-        print(f"[flash] {tag} H={H} K={K} D={D} L={L:5d} err {err:.3g} (tol {KERNEL_TOL}) "
-              f"kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
-              f"{row['library_ms']:.4f} ms bound {bnd:.4f} ms ({by})", flush=True)
+        print(f"[flash] {tag} H={H} K={K} D={D} L={L:5d} variant {row['variant']} err {err:.3g} "
+              f"(tol {KERNEL_TOL}), worst row {ulps:.3g} ulps (tol {ROW_ULPS}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+              f"sdpa {row['library_ms']:.4f} ms bound {bnd:.4f} ms ({by})", flush=True)
     return rows
 
 
-def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool = False) -> dict:
+def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool = False,
+                pools: tuple = POOLS) -> dict:
     """Decode over one layer's slot cache viewed as 16-token pages, at the
-    serving pools' shapes (short: 8 slots x 512, long: 2 slots x 2048),
-    ragged lengths, plus a poison check of the pages past each length.
+    serving pools' shapes (short: 8 slots x 512, long: 2 slots x 2048, and
+    where asked the paper's long pool, 2 x 65,536), ragged lengths, plus a
+    poison check of the pages past each length.
     With ``int8`` the cache is quantized as the model quantizes it (int8
     values, one f16 scale per position and head); the yardstick is SDPA
     over the dequantized bf16 cache, the dequantization timed apart."""
     gen = torch.Generator(device=dev).manual_seed(1)
     H, K, D = heads
     rows = {}
-    for name, slots, c_max in (("short", 8, 512), ("long", 2, 2048)):
+    for name, slots, c_max in pools:
         q = torch.randn(slots, H, D, generator=gen, device=dev).to(torch.bfloat16)
         kc = torch.randn(slots, c_max, K, D, generator=gen, device=dev).to(torch.bfloat16)
         vc = torch.randn(slots, c_max, K, D, generator=gen, device=dev).to(torch.bfloat16)
@@ -241,10 +286,7 @@ def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool
         out = paged_attention(q, kp, vp, bt, lengths, *scales)
         torch.cuda.synchronize()
         plain = paged_attention_plain(q, kp, vp, bt, lengths, *scales)
-        err = (out.float() - plain.float()).abs().max().item()
-        tol = bf16_ulps(plain, INT8_ULPS) if int8 else KERNEL_TOL
-        if not err <= tol:
-            fail(f"paged {tag} {name}: max |kernel - plain| {err} > {tol}")
+        err, ulps = check_close(out, plain, f"paged {tag} {name}")
         poisoned = [t.clone() for t in (scales if int8 else (kp, vp))]
         for b in range(slots):
             dead = bt[b, math.ceil(int(lengths[b]) / ops.PAGE):].long()
@@ -286,9 +328,13 @@ def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool
         if int8:
             row["dequant_ms"] = time_ms(dequant, flush=flush)
             extra = f" (+ dequantize to bf16 {row['dequant_ms']:.4f} ms)"
+        row["splits"] = split_count(slots, H, K, c_max, torch.cuda.get_device_properties(dev)
+                                    .multi_processor_count)
         rows[name] = row
         print(f"[paged] {tag} H={H} K={K} D={D} {name} B={slots} c_max={c_max} "
-              f"sum(len)={total} err {err:.3g} (tol {tol:.3g}), poison ok; kernel "
+              f"splits {row['splits']} ({slots * K * row['splits'] * -(-(H // K) // 8)} CTAs) "
+              f"sum(len)={total} err {err:.3g} (tol {KERNEL_TOL}), worst row {ulps:.3g} ulps "
+              f"(tol {ROW_ULPS}), poison ok; kernel "
               f"{row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
               f"{row['library_ms']:.4f} ms{extra} bound {bnd:.4f} ms ({by})", flush=True)
     return rows
@@ -378,9 +424,12 @@ def check_served(result: dict, arch: str, kernels: tuple[str, ...], tag: str) ->
     print(f"[{tag}] decode tokens {decode_tokens} in {result['wall_s']:.3f} s of serving: "
           f"{decode_tokens / result['wall_s']:.1f} tok/s; iterations short "
           f"{stats['short_iterations']} long {stats['long_iterations']}")
+    if "flash_attention" in kernels:
+        launches["flash_attention_tc"] = flash_attention.launches_tc
+        launches["flash_attention_simt"] = flash_attention.launches_simt
     print(f"[{tag}] kernel launches on the main path: {launches}", flush=True)
     for name, n in launches.items():
-        if n == 0:
+        if n == 0 and name != "flash_attention_simt":
             fail(f"{tag}: {name} was never launched on the main path")
     return {"launches": launches, "server": result["server"], "decode_tokens": decode_tokens,
             "wall_s": result["wall_s"]}
@@ -389,6 +438,7 @@ def check_served(result: dict, arch: str, kernels: tuple[str, ...], tag: str) ->
 def reset_counters() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
+    flash_mod.reset_counters()
 
 
 def serve_phase(arch: str, kernels: tuple[str, ...], tag: str) -> dict:
@@ -444,11 +494,15 @@ def profile_decode(srv, tag: str, steps: int = 10) -> dict:
         step_ms=wall_ms / steps, busy_share=busy_ms / wall_ms,
         top=[(e.key[:60], e.count // steps, e.self_device_time_total / 1e3 / steps) for e in top],
     )
+    out["kernels_per_step"] = sum(e.count for e in kernels) / steps
     print(f"[{tag}] short pool, 8 busy slots: {out['step_ms']:.3f} ms per decode step, "
           f"device busy {100 * out['busy_share']:.1f}% of the wall, "
-          f"{sum(e.count for e in kernels) / steps:.0f} kernels per step")
+          f"{out['kernels_per_step']:.0f} kernels per step (at most {MAX_KERNELS_PER_STEP[tag]})")
     for key, n, ms in out["top"]:
         print(f"[{tag}]   {ms:8.4f} ms/step  {n:4d}/step  {key}")
+    if out["kernels_per_step"] > MAX_KERNELS_PER_STEP[tag]:
+        fail(f"{tag}: {out['kernels_per_step']:.0f} kernels per decode step, more than "
+             f"{MAX_KERNELS_PER_STEP[tag]}")
     return out
 
 
@@ -710,6 +764,17 @@ def profile_des(pools, dev) -> dict:
     return out
 
 
+def sass_hgmma_counts() -> dict:
+    """Each built library's count of HGMMA instructions, from its SASS."""
+    cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name in _build.KERNELS:
+        sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts[name] = sum(line.count("HGMMA") for line in sass.splitlines())
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -725,21 +790,31 @@ def main() -> None:
     reports = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"[build] {len(reports)} kernels in {build_s:.1f} s into {_build.BUILD_DIR}")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    for name, rep in reports.items():  # ptxas -v, summed over each library's kernels
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", rep)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", rep)]
+        if not regs:
+            print(f"[build] {name}: built before this run, no ptxas report")
+            continue
+        print(f"[build] {name}: {len(regs)} kernels, registers per thread {min(regs)}-"
+              f"{max(regs)}, {sum(s > 0 for s in spills)} with spills (at most "
+              f"{max(spills)} bytes stored)")
+    hgmma = sass_hgmma_counts()
+    print(f"[build] HGMMA instructions in each library's SASS: {hgmma}", flush=True)
+    if not hgmma["flash_attention"]:
+        fail("the flash_attention library has no HGMMA (wgmma) instruction")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     dense_cfg, hybrid_cfg = get_config(DENSE), get_config(HYBRID)
     dense_heads = (dense_cfg.n_heads, dense_cfg.n_kv_heads, dense_cfg.head_dim)
     hybrid_heads = (hybrid_cfg.n_heads, hybrid_cfg.n_kv_heads, hybrid_cfg.head_dim)
-    flash_rows = flash_phase(dev, flush, heads=dense_heads, lengths=(64, 256, 512, 1024),
-                             tag=DENSE)
+    flash_rows = flash_phase(dev, flush, heads=dense_heads,
+                             lengths=(64, 256, 512, 1024, 4096), tag=DENSE)
     flash80 = flash_phase(dev, flush, heads=hybrid_heads, lengths=(256, 200), tag=HYBRID)
-    paged_rows = paged_phase(dev, flush, heads=dense_heads, tag=DENSE)
+    paged_rows = paged_phase(dev, flush, heads=dense_heads, tag=DENSE, pools=POOLS + (LONG_POOL,))
     paged80 = paged_phase(dev, flush, heads=hybrid_heads, tag=HYBRID)
-    paged8 = paged_phase(dev, flush, heads=dense_heads, tag=f"{DENSE} int8", int8=True)
+    paged8 = paged_phase(dev, flush, heads=dense_heads, tag=f"{DENSE} int8", int8=True,
+                         pools=POOLS + (LONG_POOL,))
     ssd_rows = ssd_phase(dev, flush)
     del flush
 
@@ -803,6 +878,11 @@ def main() -> None:
               f"(P, I, S) = {des['kernel']['shape']}"),
     ]
     kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
+    for k, row in zip(kernels[:5], (flash_rows[256], flash80[256], paged_rows["short"],
+                                    paged80["short"], paged8["short"])):
+        k.update({key: row[key] for key in ("variant", "splits") if key in row})
+    print("[prior] the earlier design's ms at these shapes (PERF.md's table, not measured "
+          "in this run): " + ", ".join(f"{k} {v}" for k, v in PRIOR_MS.items()))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

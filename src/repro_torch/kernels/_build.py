@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _D = ctypes.c_double
 
@@ -38,14 +39,16 @@ _D = ctypes.c_double
 SIGNATURES = {
     "flash_attention": (
         "flash_attention_fwd",
-        # q, k, v, o, B, H, KH, Lq, Lk, D, causal, scale, dtype, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        # q, k, v, o, B, H, KH, Lq, Lk, D, causal, scale, dtype, element
+        # strides (b, h, l) of q, k, v and o, stream
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I] + [_L] * 12 + [_P],
     ),
     "paged_attention": (
         "paged_attention_fwd",
         # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, o,
-        # B, H, KH, D, page, pps, scale, q_dtype, kv_dtype, scale_dtype, stream
-        [_P] * 8 + [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P],
+        # B, H, KH, D, page, pps, splits, scale, q_dtype, kv_dtype,
+        # scale_dtype, stream
+        [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P],
     ),
     "ssd_scan": (
         "ssd_scan_fwd",
@@ -119,12 +122,17 @@ def build_all() -> dict[str, str]:
 
 
 @functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name`` (built on first use)."""
+    path, _ = build(name)
+    return ctypes.CDLL(str(path))
+
+
+@functools.lru_cache(maxsize=None)
 def kernel_fn(name: str):
     """The loaded C entry point of kernel ``name`` (built on first use)."""
-    path, _ = build(name)
-    lib = ctypes.CDLL(str(path))
     symbol, argtypes = SIGNATURES[name]
-    fn = getattr(lib, symbol)
+    fn = getattr(library(name), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -3,7 +3,9 @@
 Counterpart of ``repro.kernels.ops``: the model code keeps ``(B, L, H, D)``
 and the kernels take head-major tensors, so these functions swap the layout
 and call the kernel modules, which launch the Hopper kernel on CUDA tensors
-and run the plain PyTorch version on CPU tensors.
+and run the plain PyTorch version on CPU tensors. The flash kernel reads
+strides, so prefill hands it head-major views and gets back an output that
+is ``(B, L, H, D)`` in memory: no copy either way.
 
 :func:`slot_decode_attention` is the engine-level mapping that the
 reference's slot cache describes: one layer's slot cache
@@ -40,9 +42,7 @@ def flash_attention(
     causal: bool = True,
 ) -> torch.Tensor:
     """Prefill attention in the model layout; returns (B, L, H, D)."""
-    qh = q.transpose(1, 2).contiguous()
-    kh = k.transpose(1, 2).contiguous()
-    vh = v.transpose(1, 2).contiguous()
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     return _flash.flash_attention(qh, kh, vh, causal=causal).transpose(1, 2)
 
 

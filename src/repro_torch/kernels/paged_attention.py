@@ -7,8 +7,15 @@ one query token per sequence ``(B, H, D)`` against a page pool
 positions at or past ``lengths`` are masked, and the kernel never loads
 them. Online softmax in f32, output in q's dtype. Pages are bf16 or f32,
 or int8 with one scale per (position, head), ``(P, page, K, 1)`` in f16 or
-f32; the int8 values are dequantized in f32 (``value * scale``) right
-after the load, as the TPU kernel does.
+f32. The plain version dequantizes each int8 value in f32 (``value *
+scale``), as the TPU kernel does after its page read; the kernel applies
+the same f32 scales per position, K's to the dot product and V's to the
+probability.
+
+The kernel splits each sequence's positions, for each KV head, over
+:func:`split_count` CTAs of one thread-block cluster, which combine their
+partial softmax states in the same launch; a CTA serves up to eight query
+heads of its KV head.
 
 :func:`paged_attention` launches the kernel on CUDA tensors and runs
 :func:`paged_attention_plain` on CPU tensors.
@@ -16,6 +23,7 @@ after the load, as the TPU kernel does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -28,9 +36,11 @@ from repro_torch.kernels.flash_attention import DTYPE_CODES, SUPPORTED_HEAD_DIMS
 PAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 SCALE_CODES = {torch.float32: 0, torch.float16: 2}
 
-#: Shared memory a CTA may use on sm_90 (bytes).
-MAX_SMEM = 232_448
 _TILE = 64  # cache positions per kernel tile
+#: Most CTAs (one portable thread-block cluster) per (sequence, KV head).
+MAX_SPLIT = 8
+#: Most query heads one CTA serves.
+_HEADS_PER_CTA = 8
 
 
 def paged_attention_plain(
@@ -68,10 +78,26 @@ def paged_attention_plain(
     return o.reshape(b, h, d).to(q.dtype)
 
 
-def smem_bytes(h: int, n_kv: int, d: int) -> int:
-    """Dynamic shared memory one CTA of the kernel asks for."""
-    g = h // n_kv
-    return 4 * (2 * g * d + 2 * _TILE * (d + 1) + g * _TILE + 3 * g)
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_count(b: int, h: int, n_kv: int, mapped: int, sms: int) -> int:
+    """CTAs per (sequence, KV head, group of up to 8 query heads): the
+    largest power of two S, at most :data:`MAX_SPLIT`, that keeps the
+    ``S * b * n_kv * groups`` CTAs within one per SM, and at most one per
+    64-position tile of the ``mapped`` (= pps * page) positions. A CTA
+    costs a fixed few microseconds (the length, block-table and first-tile
+    reads in series, the merge), so one wave of fatter CTAs beats more
+    waves of thinner ones. Uses only shapes, so it needs no device sync;
+    the kernel cuts each sequence's actual length into S shares of
+    ceil(length / S) positions."""
+    groups = -(-(h // n_kv) // _HEADS_PER_CTA)
+    s = 1
+    while s < MAX_SPLIT and b * n_kv * groups * s * 2 <= sms:
+        s *= 2
+    return max(1, min(s, mapped // _TILE))
 
 
 def _check(q, k_pages, v_pages, block_tables, lengths, k_scales=None, v_scales=None) -> None:
@@ -122,8 +148,6 @@ def _check(q, k_pages, v_pages, block_tables, lengths, k_scales=None, v_scales=N
         raise ValueError(f"lengths must be ({b},), got {tuple(lengths.shape)}")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {SUPPORTED_HEAD_DIMS}")
-    if smem_bytes(h, n_kv, d) > MAX_SMEM:
-        raise ValueError(f"G={h // n_kv}, D={d} needs more shared memory than a CTA has")
     if not all(t.is_contiguous() for t in (q, *tensors, *scales)):
         raise ValueError("paged_attention needs contiguous operands")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
@@ -149,6 +173,8 @@ def paged_attention(
     _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     b, h, d = q.shape
     _, page, n_kv, _ = k_pages.shape
+    pps = block_tables.shape[1]
+    splits = split_count(b, h, n_kv, pps * page, _sm_count(q.device))
     quant = k_pages.dtype == torch.int8
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fn = _build.kernel_fn("paged_attention")
@@ -157,7 +183,7 @@ def paged_attention(
         k_scales.data_ptr() if quant else None,
         v_scales.data_ptr() if quant else None,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, h, n_kv, d, page, block_tables.shape[1], 1.0 / math.sqrt(d),
+        b, h, n_kv, d, page, pps, splits, 1.0 / math.sqrt(d),
         DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
         SCALE_CODES[k_scales.dtype] if quant else 0,
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -186,4 +186,7 @@ def test_wrappers_check_cuda_operands():
     with pytest.raises(ValueError, match="CUDA"):
         pa._check(q[:, :, 0], torch.zeros(4, 16, 2, 32), torch.zeros(4, 16, 2, 32),
                   torch.zeros(1, 4, dtype=torch.int32), torch.ones(1, dtype=torch.int32))
-    assert pa.smem_bytes(32, 4, 128) < pa.MAX_SMEM
+    # The split: one wave of CTAs at most, none without a 64-position tile.
+    assert pa.split_count(8, 32, 4, 512, 132) == 4
+    assert pa.split_count(17, 32, 4, 1 << 20, 132) == 1
+    assert pa.split_count(2, 32, 4, 128, 132) == 2

@@ -18,10 +18,12 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_plain,
+    variant,
 )
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
+    split_count,
 )
 from repro_torch.kernels.sim_decode import (  # noqa: E402
     OUTPUTS,
@@ -48,25 +50,57 @@ FLASH_CASES = [
     (1, 1024, 32, 4, 128, torch.bfloat16, 2e-2),  # yi-6b widths
     (1, 256, 32, 32, 80, torch.bfloat16, 2e-2),  # zamba2's shared attention
     (2, 200, 4, 4, 80, torch.float32, 2e-5),  # D = 80, ragged length
+    # Lengths ragged against the 64-key tiles and the TMA box, at each
+    # tensor-core head dim; GQA G = 8 and MQA.
+    (2, 1, 32, 4, 128, torch.bfloat16, 2e-2),
+    (2, 63, 8, 1, 64, torch.bfloat16, 2e-2),  # MQA
+    (1, 65, 16, 2, 80, torch.bfloat16, 2e-2),
+    (2, 200, 8, 8, 256, torch.bfloat16, 2e-2),
+    (1, 65, 32, 4, 128, torch.bfloat16, 2e-2),
+    (2, 200, 8, 1, 128, torch.bfloat16, 2e-2),  # MQA
+    (1, 63, 32, 32, 80, torch.bfloat16, 2e-2),
+    (1, 1, 4, 4, 64, torch.bfloat16, 2e-2),
+    (1, 128, 4, 2, 256, torch.bfloat16, 2e-2),
+    (1, 1, 4, 1, 32, torch.bfloat16, 2e-2),  # D = 32: the CUDA-core variant
 ]
 
+# Lengths: None draws them at random in [1, pps * page]. The kernel splits
+# each sequence, for each KV head, over ``split_count`` CTAs of
+# ceil(length / S) positions; cases below put a share's boundary inside a
+# page, leave shares empty (sequences much shorter than the split), run
+# the paper's long pool (2 slots x 65,536, Table 2's c_max) at yi-6b widths,
+# and a table of 2**20 positions a sequence on one CTA each (S = 1: 17 slots
+# fill the card), whose shared memory must not grow with the table.
 PAGED_CASES = [
-    # (B, H, K, D, page, pages_per_seq, q dtype, page dtype, tol)
-    (4, 8, 2, 64, 16, 8, torch.float32, torch.float32, 2e-5),
-    (2, 8, 1, 128, 16, 4, torch.float32, torch.float32, 2e-5),  # MQA
-    (3, 4, 4, 32, 32, 4, torch.float32, torch.bfloat16, 2e-5),
-    (8, 32, 4, 128, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2),  # yi-6b
-    (8, 32, 32, 80, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2),  # zamba2
-    (3, 4, 4, 80, 16, 4, torch.float32, torch.float32, 2e-5),
+    # (B, H, K, D, page, pages_per_seq, q dtype, page dtype, tol, lengths)
+    (4, 8, 2, 64, 16, 8, torch.float32, torch.float32, 2e-5, None),
+    (2, 8, 1, 128, 16, 4, torch.float32, torch.float32, 2e-5, None),  # MQA
+    (3, 4, 4, 32, 32, 4, torch.float32, torch.bfloat16, 2e-5, None),
+    (8, 32, 4, 128, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, None),  # yi-6b
+    (8, 32, 32, 80, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, None),  # zamba2
+    (3, 4, 4, 80, 16, 4, torch.float32, torch.float32, 2e-5, None),
+    (5, 32, 4, 128, 16, 8, torch.bfloat16, torch.bfloat16, 2e-2, [1, 16, 64, 65, 128]),
+    (2, 8, 1, 64, 16, 9, torch.bfloat16, torch.bfloat16, 2e-2, [144, 100]),  # boundary in a page
+    (2, 8, 2, 128, 16, 64, torch.bfloat16, torch.bfloat16, 2e-2, [1, 70]),  # empty shares
+    (2, 32, 32, 80, 16, 64, torch.bfloat16, torch.bfloat16, 2e-2, [3, 1024]),
+    (2, 32, 4, 128, 16, 4096, torch.bfloat16, torch.bfloat16, 2e-2, [65_536, 40_000]),  # long
+    (17, 32, 4, 128, 16, 65_536, torch.bfloat16, torch.bfloat16, 2e-2,
+     [4096] + [1 + 241 * i for i in range(16)]),  # S = 1, 2**20 mapped
+    (2, 8, 2, 256, 16, 8, torch.float32, torch.float32, 2e-5, None),  # one-stage ring
 ]
 
 INT8_CASES = [
-    # (B, H, K, D, page, pages_per_seq, q dtype, scale dtype, tol): the
-    # kernel and the plain version dequantize alike (int8 * scale in f32)
-    (8, 32, 4, 128, 16, 32, torch.bfloat16, torch.float16, 2e-2),  # yi-6b, f16 scales
-    (8, 32, 4, 128, 16, 32, torch.float32, torch.float16, 2e-5),  # yi-6b widths, f32 q
-    (3, 8, 2, 64, 16, 4, torch.float32, torch.float32, 2e-5),  # the reference test's shape
-    (2, 32, 32, 80, 16, 8, torch.float32, torch.float16, 2e-5),  # D = 80
+    # (B, H, K, D, page, pages_per_seq, q dtype, scale dtype, tol, lengths):
+    # both compute in f32 from the int8 values and their scales (the plain
+    # version scales each value, the kernel each dot product and
+    # probability), so they differ by f32 rounding
+    (8, 32, 4, 128, 16, 32, torch.bfloat16, torch.float16, 2e-2, None),  # yi-6b, f16 scales
+    (8, 32, 4, 128, 16, 32, torch.float32, torch.float16, 2e-5, None),  # yi-6b widths, f32 q
+    (3, 8, 2, 64, 16, 4, torch.float32, torch.float32, 2e-5, None),  # the reference test's shape
+    (2, 32, 32, 80, 16, 8, torch.float32, torch.float16, 2e-5, None),  # D = 80
+    (2, 8, 1, 64, 16, 9, torch.bfloat16, torch.float16, 2e-2, [144, 100]),  # boundary in a page
+    (2, 32, 4, 128, 16, 64, torch.bfloat16, torch.float16, 2e-2, [1, 70]),  # empty shares
+    (2, 32, 4, 128, 16, 4096, torch.bfloat16, torch.float16, 2e-2, [65_536, 1000]),  # long
 ]
 
 SSD_CASES = [
@@ -93,36 +127,90 @@ def _randn(gen, shape, dtype, device):
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain(cuda, case, causal):
+    """Head-major operands against the plain version; the same data in the
+    model's (B, L, H, D) layout (strided views, no copy) gives the same bits;
+    bf16 at head dims 64, 80 and 128 counts on the tensor-core variant."""
     B, L, H, K, D, dtype, tol = case
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(gen, (B, H, L, D), dtype, cuda)
     k = _randn(gen, (B, K, L, D), dtype, cuda)
     v = _randn(gen, (B, K, L, D), dtype, cuda)
-    before = flash_attention.launches
+    kind = variant(D, dtype)
+    if dtype == torch.bfloat16 and D in (64, 80, 128):
+        assert kind == "tc"
+    if dtype == torch.float32 or D == 32:
+        assert kind == "simt"
+    counter = "launches_tc" if kind == "tc" else "launches_simt"
+    before, before_kind = flash_attention.launches, getattr(flash_attention, counter)
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    assert getattr(flash_attention, counter) == before_kind + 1
     expect = flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), expect.float(), atol=tol, rtol=0)
+    qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    om = ops.flash_attention(qm, km, vm, causal=causal)
+    assert om.is_contiguous() and om.shape == (B, L, H, D)
+    assert torch.equal(om, out.transpose(1, 2))
+
+
+def _lengths(gen, lengths, B, mapped, device):
+    if lengths is None:
+        return torch.randint(1, mapped + 1, (B,), generator=gen, device=device, dtype=torch.int32)
+    return torch.tensor(lengths, dtype=torch.int32, device=device)
+
+
+def _reach(pps, page, lens):
+    """Pages a sequence's table maps that some length reaches."""
+    return pps if lens is None else min(pps, -(-max(lens) // page))
+
+
+def _table(gen, total, B, pps, reach, device):
+    """A block table whose first ``reach`` entries a row are distinct pages
+    of the pool (the poison check needs them apart); the entries past every
+    length name one spare page, so a long table needs no pool of its size."""
+    perm = torch.randperm(total, generator=gen, device=device)
+    bt = perm[: B * reach].view(B, reach)
+    if reach < pps:
+        bt = torch.cat([bt, perm[B * reach].expand(B, pps - reach)], 1)
+    return bt.to(torch.int32).contiguous()
+
+
+def _check_split(case, cuda):
+    """What a case with given lengths is there to show, under the split the
+    wrapper picks: S CTAs a sequence, shares of ceil(length / S) positions."""
+    B, H, K, D, page, pps = case[:6]
+    lens = case[-1]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    s = split_count(B, H, K, pps * page, sms)
+    chunks = [] if lens is None else [-(-n // s) for n in lens]
+    if lens == [144, 100]:  # every share boundary falls inside a page
+        assert s == 2 and all(c % page for c in chunks)
+    if lens in ([1, 70], [1, 16, 64, 65, 128]):  # some CTAs hold an empty share
+        assert any(sh * c >= n for n, c in zip(lens, chunks) for sh in range(s))
+    if pps * page >= 1 << 20:  # one CTA walks each sequence
+        assert s == 1
 
 
 @pytest.mark.parametrize("case", PAGED_CASES)
 def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, case):
-    B, H, K, D, page, pps, qdt, kdt, tol = case
+    B, H, K, D, page, pps, qdt, kdt, tol, lens = case
+    _check_split(case, cuda)
     gen = torch.Generator(device=cuda).manual_seed(1)
-    total = B * pps * 2
+    reach = _reach(pps, page, lens)
+    total = B * reach * 2
     q = _randn(gen, (B, H, D), qdt, cuda)
     kp = _randn(gen, (total, page, K, D), kdt, cuda)
     vp = _randn(gen, (total, page, K, D), kdt, cuda)
-    bt = torch.randperm(total, generator=gen, device=cuda)[: B * pps]
-    bt = bt.view(B, pps).to(torch.int32).contiguous()
-    lengths = torch.randint(1, pps * page + 1, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    bt = _table(gen, total, B, pps, reach, cuda)
+    lengths = _lengths(gen, lens, B, pps * page, cuda)
     before = paged_attention.launches
     out = paged_attention(q, kp, vp, bt, lengths)
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
     torch.testing.assert_close(
-        out.float(), paged_attention_plain(q, kp, vp, bt, lengths).float(), atol=tol, rtol=0
+        out.float(), paged_attention_plain(q, kp, vp, bt[:, :reach], lengths).float(),
+        atol=tol, rtol=0,
     )
     for b in range(B):  # poison every page past each length: never read
         dead = bt[b, math.ceil(int(lengths[b]) / page):].long()
@@ -133,23 +221,24 @@ def test_paged_kernel_matches_plain_and_skips_dead_pages(cuda, case):
 
 @pytest.mark.parametrize("case", INT8_CASES)
 def test_int8_paged_kernel_matches_plain_and_skips_dead_pages(cuda, case):
-    B, H, K, D, page, pps, qdt, sdt, tol = case
+    B, H, K, D, page, pps, qdt, sdt, tol, lens = case
+    _check_split(case, cuda)
     gen = torch.Generator(device=cuda).manual_seed(4)
-    total = B * pps * 2
+    reach = _reach(pps, page, lens)
+    total = B * reach * 2
     q = _randn(gen, (B, H, D), qdt, cuda)
     kp = torch.randint(-127, 128, (total, page, K, D), generator=gen, device=cuda, dtype=torch.int8)
     vp = torch.randint(-127, 128, (total, page, K, D), generator=gen, device=cuda, dtype=torch.int8)
     ks = (torch.rand((total, page, K, 1), generator=gen, device=cuda) * 0.02 + 1e-3).to(sdt)
     vs = (torch.rand((total, page, K, 1), generator=gen, device=cuda) * 0.02 + 1e-3).to(sdt)
-    bt = torch.randperm(total, generator=gen, device=cuda)[: B * pps]
-    bt = bt.view(B, pps).to(torch.int32).contiguous()
-    lengths = torch.randint(1, pps * page + 1, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    bt = _table(gen, total, B, pps, reach, cuda)
+    lengths = _lengths(gen, lens, B, pps * page, cuda)
     before = paged_attention.launches
     out = paged_attention(q, kp, vp, bt, lengths, ks, vs)
     torch.cuda.synchronize()
     assert paged_attention.launches == before + 1
     torch.testing.assert_close(
-        out.float(), paged_attention_plain(q, kp, vp, bt, lengths, ks, vs).float(),
+        out.float(), paged_attention_plain(q, kp, vp, bt[:, :reach], lengths, ks, vs).float(),
         atol=tol, rtol=0,
     )
     for b in range(B):  # poison every scale past each length: never read
