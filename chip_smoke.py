@@ -6,8 +6,10 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 
 1. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` into
    ``build/`` (one nvcc per source, all at once), prints the build time and
-   each library's count of ``HGMMA`` (wgmma) instructions in its SASS
-   (``cuobjdump``); the flash library must have some;
+   each library's counts of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)
+   instructions in its SASS (``cuobjdump``); the flash library must have
+   HGMMA, the SSD scan's library one of the two. Then reads ``time_ms``'s own
+   floor (a one-element fill under the same flush, sleep and events);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving paths give it (bf16; yi-6b's head_dim 128, zamba2's
    80, yi-6b's int8 pages with f16 scales; zamba2's SSD scan at its prompt
@@ -43,11 +45,12 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    runs a shorter routed trace on the card and on the CPU, whose records
    and loop counters must be equal bit for bit; and profiles a short
    routed run (device busy share, kernels per round);
-7. prints the earlier design's times at the JSON line's flash and paged
-   shapes on a line of their own (``[prior]``, copied from PERF.md, not
-   measured here), the kernels' JSON line (each flash and paged entry also
-   carries its variant or split count), the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+7. prints the earlier design's times at the JSON line's shapes on a line
+   of their own (``[prior]``, copied from PERF.md, not measured here), the
+   kernels' JSON line (each entry carries the timing floor; flash and paged
+   entries their variant or split count, the SSD scan its P split and CTA
+   count), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without a GPU, and a directory without the repository.
@@ -93,7 +96,7 @@ from repro_torch.kernels.sim_decode import (  # noqa: E402
     decode_advance_plain,
     random_state,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import P_TILE, ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch.serve import run_workload, serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.transformer import quantize_kv  # noqa: E402
@@ -102,9 +105,10 @@ from repro_torch.sim import A100_LLAMA3_70B, FleetSim, plan_fleet  # noqa: E402
 from repro_torch.sim import torch_engine  # noqa: E402
 from repro_torch.traces import TraceSpec, generate_trace_columns  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core rate, the
-# float32 rate outside the tensor cores, and HBM3.
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor-core
+# rates, the float32 rate outside the tensor cores, and HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # bf16 outputs of the kernel and its plain version both round an f32
@@ -153,7 +157,7 @@ MAX_KERNELS_PER_STEP = {"profile": 1665, "profile-int8": 2081, "profile-hybrid":
 #: printed on their own line, never in the kernels' JSON line.
 PRIOR_MS = {"flash_attention": 0.1287, "flash_attention_d80": 0.0835,
             "paged_attention": 0.0677, "paged_attention_d80": 0.0334,
-            "paged_attention_int8": 0.0626}
+            "paged_attention_int8": 0.0626, "ssd_scan": 0.0695, "sim_decode": 0.0108}
 #: The paged rows: (name, slots, c_max); the long-pool row runs at yi-6b's
 #: widths only (bf16 and int8 pages).
 POOLS = (("short", 8, 512), ("long", 2, 2048))
@@ -196,6 +200,15 @@ def time_ms(fn, *, iters: int = 20, flush: torch.Tensor) -> float:
         e.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def timing_floor(dev, flush: torch.Tensor) -> float:
+    """``time_ms``'s own floor: the reading for a launch that does almost
+    nothing (a one-element fill) under the same flush, sleep and events."""
+    one = torch.empty(1, device=dev)
+    floor = time_ms(lambda: one.fill_(1.0), flush=flush)
+    print(f"[timing] floor {floor:.4f} ms (a one-element fill under time_ms)", flush=True)
+    return floor
 
 
 def row_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -362,10 +375,14 @@ def ssd_phase(dev, flush) -> dict:
     """The SSD chunk scan at zamba2's prefill shape (B = 1, H = 80 SSM
     heads, P = 64, N = 64; x folded with dt in f32, B/C bf16 as the model
     gives them) at the longest prompt a short-pool request brings and at a
-    ragged length."""
+    ragged length. The bound counts the function's fewest FLOPs at the TF32
+    tensor-core rate over the kernel's three passes (its f32 products are
+    split in three TF32 ones), beside the f32 CUDA-core bound the first
+    design had."""
     cfg = get_config(HYBRID)
     H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     gen = torch.Generator(device=dev).manual_seed(3)
+    splits = -(-P // P_TILE)
     rows = {}
     for L in (256, 200):
         dt = torch.rand((1, H, L), generator=gen, device=dev) * 0.19 + 0.01
@@ -384,18 +401,22 @@ def ssd_phase(dev, flush) -> dict:
         err = max((y - yp).abs().max().item(), (st - sp).abs().max().item())
         # bytes: x read and y written in f32, log_a, B and C, the state written
         nbytes = 4 * 2 * H * L * P + 4 * H * L + 2 * 2 * L * N + 4 * H * P * N
-        bnd, by = bound_ms(nbytes, H * ssd_min_flops(L, P, N), PEAK_F32_FLOPS)
+        flops = H * ssd_min_flops(L, P, N)
+        bnd, by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS / 3)
+        f32_bnd, f32_by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
         row = dict(
             L=L, max_abs_err=err,
             ms=time_ms(lambda: ssd_scan(x, log_a, bm, cm), flush=flush),
             plain_ms=time_ms(lambda: ssd_scan_plain(x, log_a, bm, cm), flush=flush),
-            bound_ms=bnd, bound_by=by, library_ms=None,
+            bound_ms=bnd, bound_by=by, library_ms=None, p_split=splits, ctas=H * splits,
         )
         rows[L] = row
-        print(f"[ssd_scan] B=1 H={H} P={P} N={N} L={L} grid {H} CTAs: max |kernel - plain| "
-              f"{err:.3g} (tol {SSD_ATOL} + {SSD_RTOL}*|plain|); kernel {row['ms']:.4f} ms "
-              f"plain {row['plain_ms']:.4f} ms bound {bnd:.4f} ms ({by}); no single "
-              f"PyTorch call computes this scan", flush=True)
+        print(f"[ssd_scan] B=1 H={H} P={P} N={N} L={L} P split {splits} x {P_TILE} columns, "
+              f"{H * splits} CTAs: max |kernel - plain| {err:.3g} (tol {SSD_ATOL} + "
+              f"{SSD_RTOL}*|plain|); kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+              f"bound {bnd:.4f} ms ({by}; 3xTF32 at {PEAK_TF32_FLOPS / 3e12:.0f} TFLOP/s), "
+              f"f32 CUDA-core bound {f32_bnd:.4f} ms ({f32_by}); no single PyTorch call "
+              f"computes this scan", flush=True)
     return rows
 
 
@@ -764,14 +785,15 @@ def profile_des(pools, dev) -> dict:
     return out
 
 
-def sass_hgmma_counts() -> dict:
-    """Each built library's count of HGMMA instructions, from its SASS."""
+def sass_mma_counts() -> dict:
+    """Each built library's counts of tensor-core instructions in its SASS:
+    HGMMA (wgmma) and HMMA (mma.sync)."""
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     counts = {}
     for name in _build.KERNELS:
         sass = subprocess.run([str(cuobjdump), "--dump-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
-        counts[name] = sum(line.count("HGMMA") for line in sass.splitlines())
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "HMMA")}
     return counts
 
 
@@ -799,12 +821,15 @@ def main() -> None:
         print(f"[build] {name}: {len(regs)} kernels, registers per thread {min(regs)}-"
               f"{max(regs)}, {sum(s > 0 for s in spills)} with spills (at most "
               f"{max(spills)} bytes stored)")
-    hgmma = sass_hgmma_counts()
-    print(f"[build] HGMMA instructions in each library's SASS: {hgmma}", flush=True)
-    if not hgmma["flash_attention"]:
+    mma = sass_mma_counts()
+    print(f"[build] HGMMA / HMMA instructions in each library's SASS: {mma}", flush=True)
+    if not mma["flash_attention"]["HGMMA"]:
         fail("the flash_attention library has no HGMMA (wgmma) instruction")
+    if not (mma["ssd_scan"]["HGMMA"] or mma["ssd_scan"]["HMMA"]):
+        fail("the ssd_scan library has no HGMMA or HMMA (tensor-core) instruction")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    floor = timing_floor(dev, flush)
     dense_cfg, hybrid_cfg = get_config(DENSE), get_config(HYBRID)
     dense_heads = (dense_cfg.n_heads, dense_cfg.n_kv_heads, dense_cfg.head_dim)
     hybrid_heads = (hybrid_cfg.n_heads, hybrid_cfg.n_kv_heads, hybrid_cfg.head_dim)
@@ -851,7 +876,7 @@ def main() -> None:
                     replaces=replaces, path=path, shape=shape, launches=launches,
                     max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=row.get("library_ms"))
+                    library_ms=row.get("library_ms"), floor_ms=floor)
 
     flash_src, paged_src = "flash_attention.cu", "paged_attention.cu"
     flash_rep = "src/repro/kernels/flash_attention.py:96"
@@ -878,9 +903,9 @@ def main() -> None:
               f"(P, I, S) = {des['kernel']['shape']}"),
     ]
     kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
-    for k, row in zip(kernels[:5], (flash_rows[256], flash80[256], paged_rows["short"],
-                                    paged80["short"], paged8["short"])):
-        k.update({key: row[key] for key in ("variant", "splits") if key in row})
+    for k, row in zip(kernels[:6], (flash_rows[256], flash80[256], paged_rows["short"],
+                                    paged80["short"], paged8["short"], ssd_rows[256])):
+        k.update({key: row[key] for key in ("variant", "splits", "p_split", "ctas") if key in row})
     print("[prior] the earlier design's ms at these shapes (PERF.md's table, not measured "
           "in this run): " + ", ".join(f"{k} {v}" for k, v in PRIOR_MS.items()))
     print(json.dumps({"kernels": kernels}))

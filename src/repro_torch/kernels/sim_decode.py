@@ -189,10 +189,10 @@ def decode_advance(
     h: float,
     chunk: int,
 ) -> dict[str, torch.Tensor]:
-    """The decode-advance round: the kernel on CUDA (one CTA per
-    ``(pool, instance)`` row, one launch for every pool), the plain version
-    on the CPU. ``t_limit`` stays on the device, so a launch needs no host
-    sync."""
+    """The decode-advance round: the kernel on CUDA (one warp per
+    ``(pool, instance)`` row, four rows a CTA, one launch for every pool),
+    the plain version on the CPU. ``t_limit`` stays on the device, so a
+    launch needs no host sync."""
     if occ.device.type == "cpu":
         return decode_advance_plain(
             t_limit, busy, now, nact, free, occ, pre, sq, inp, gen, rem,

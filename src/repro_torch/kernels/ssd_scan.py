@@ -30,6 +30,9 @@ from repro_torch.kernels.flash_attention import DTYPE_CODES
 MAX_SMEM = 232_448
 #: Steps per chunk in the kernel (``kQ`` in ``csrc/ssd_scan.cu``).
 KERNEL_CHUNK = 64
+#: Columns of P a CTA takes (``kPT``): a (batch, head) runs on
+#: ``ceil(P / P_TILE)`` CTAs.
+P_TILE = 16
 
 
 def ssd_scan_plain(
@@ -73,10 +76,16 @@ def ssd_scan_plain(
     return y.to(x.dtype), s
 
 
-def smem_bytes(p: int, n: int) -> int:
-    """Dynamic shared memory one CTA of the kernel asks for."""
-    q = KERNEL_CHUNK
-    return 4 * (n * p + q * p + 2 * n * (q + 4) + q * q + 2 * q)
+def smem_bytes(n: int, x_size: int, bc_size: int, nbuf: int) -> int:
+    """Dynamic shared memory one CTA asks for (``Layout`` in
+    ``csrc/ssd_scan.cu``): ``nbuf`` buffers of the chunk's x (``P_TILE``
+    columns), B and C tiles and the state (at N = 64 f32 and its two TF32
+    parts, else f32), rows padded by 16 bytes and N to a multiple of 8, and
+    each warp's cumsum rows. Element sizes in bytes."""
+    q, pt, np_ = KERNEL_CHUNK, P_TILE, -(-n // 8) * 8
+    state = (3 if n == 64 else 1) * pt * (np_ + 4) * 4
+    buffer = q * (pt + 16 // x_size) * x_size + 2 * q * (np_ + 16 // bc_size) * bc_size + state
+    return nbuf * buffer + 4 * 2 * q * 4
 
 
 def _check(x, log_a, b_mat, c_mat) -> None:
@@ -108,8 +117,8 @@ def _check(x, log_a, b_mat, c_mat) -> None:
     if min(bsz, h, length) == 0 or p % 4 or n % 4 or p == 0 or n == 0:
         raise ValueError(f"ssd_scan needs nonempty B, H, L and P, N multiples of 4, got "
                          f"x {tuple(x.shape)}, N={n}")
-    if smem_bytes(p, n) > MAX_SMEM:
-        raise ValueError(f"P={p}, N={n} needs more shared memory than a CTA has")
+    if smem_bytes(n, x.element_size(), b_mat.element_size(), 1) > MAX_SMEM:
+        raise ValueError(f"N={n} needs more shared memory than a CTA has")
     if not all(t.is_contiguous() for t in (x, log_a, b_mat, c_mat)):
         raise ValueError("ssd_scan needs contiguous operands")
 

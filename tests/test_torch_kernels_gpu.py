@@ -105,11 +105,24 @@ INT8_CASES = [
 
 SSD_CASES = [
     # (B, L, H, P, N, x dtype, B/C dtype, atol, rtol): f32 differs from the
-    # plain version by summation order; bf16 y rounds an f32 result
+    # plain version by summation order and the split TF32 products' dropped
+    # lo.lo terms (~2**-22 relative); bf16 y rounds an f32 result
     (1, 256, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),  # zamba2 prefill
     (1, 200, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),  # ragged tail
     (2, 1, 4, 32, 16, torch.float32, torch.float32, 1e-4, 1e-4),  # one step
     (2, 130, 3, 16, 8, torch.bfloat16, torch.bfloat16, 2e-2, 2**-7),
+    # zamba2 widths at lengths around the 64-step chunk
+    (1, 1, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),
+    (1, 63, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),
+    (1, 64, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),
+    (1, 65, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),
+    (1, 129, 80, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),
+    (1, 256, 80, 64, 64, torch.float32, torch.float32, 1e-4, 1e-4),  # f32 B/C: three passes
+    (2, 200, 8, 64, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),  # B = 2
+    (1, 130, 8, 32, 64, torch.float32, torch.bfloat16, 1e-4, 1e-4),  # P = 32
+    # bf16 rows of 8 bytes (element-wise copies) and P below the CTA's tile
+    (1, 70, 2, 4, 4, torch.bfloat16, torch.bfloat16, 2e-2, 2**-7),
+    (1, 130, 4, 16, 256, torch.float32, torch.float32, 1e-4, 1e-4),  # one buffer (large N)
 ]
 
 
@@ -323,12 +336,23 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 SIM_DECODE_ARGS = ("t_limit", "busy", "now", "nact", "free", "occ", "pre", "sq", "inp",
                    "gen", "rem", "blk", "ft", "tr", "c_max")
 SIM_DECODE_CASES = [
-    # (c_max per pool, instances, slots, t_limit, timing (w, h))
-    ([8192, 65_536], 224, 128, None, (8.0e-3, 0.65e-3)),  # Table-2 fleet shapes
-    ([8192, 65_536], 224, 128, math.inf, (8.0e-3, 0.65e-3)),
-    ([1024, 2048, 4096], 6, 16, None, (2**-10, 2**-13)),
-    ([2048], 5, 200, None, (8.0e-3, 0.65e-3)),  # more slots than threads
-    ([4096], 3, 8, math.inf, (2**-10, 2**-13)),
+    # (c_max per pool, instances, slots, t_limit, timing (w, h), offset):
+    # with ``offset`` every operand is ``t[1:]`` of a tensor with one pool
+    # more, a contiguous view whose storage offset (I * S elements, odd) is
+    # not 16-byte aligned
+    ([8192, 65_536], 224, 128, None, (8.0e-3, 0.65e-3), False),  # Table-2 fleet shapes
+    ([8192, 65_536], 224, 128, math.inf, (8.0e-3, 0.65e-3), False),
+    ([1024, 2048, 4096], 6, 16, None, (2**-10, 2**-13), False),
+    ([2048], 5, 200, None, (8.0e-3, 0.65e-3), False),  # more slots than a warp holds
+    ([4096], 3, 8, math.inf, (2**-10, 2**-13), False),
+    # S = 1, 6 (a vector-less tail), 33 and 129 (past one warp's 128);
+    # 7 and 9 rows, which 4 rows a CTA do not divide
+    ([8192, 65_536], 7, 1, None, (8.0e-3, 0.65e-3), False),
+    ([2048, 4096], 5, 6, None, (2**-10, 2**-13), False),
+    ([1024, 2048, 4096], 3, 33, None, (8.0e-3, 0.65e-3), False),
+    ([2048], 9, 129, math.inf, (8.0e-3, 0.65e-3), False),
+    ([8192, 65_536], 13, 17, None, (8.0e-3, 0.65e-3), True),
+    ([4096], 3, 33, None, (2**-10, 2**-13), True),
 ]
 
 
@@ -336,8 +360,14 @@ SIM_DECODE_CASES = [
 def test_sim_decode_kernel_bit_identical_to_plain(cuda, case):
     """Every output equal bit for bit (float64 compared as bits, so NaN
     first-token times count)."""
-    c_max, n_inst, n_slots, t_limit, (w, h) = case
-    st = random_state(11, c_max, n_inst, n_slots, t_limit=t_limit, device=cuda)
+    c_max, n_inst, n_slots, t_limit, (w, h), offset = case
+    if offset:
+        st = random_state(11, c_max[:1] + c_max, n_inst, n_slots, t_limit=t_limit, device=cuda)
+        st = {k: v if k == "t_limit" else v[1:] for k, v in st.items()}
+        assert (n_inst * n_slots) % 2 == 1 and st["pre"].is_contiguous()
+        assert st["pre"].data_ptr() % 16 != 0 and st["occ"].data_ptr() % 4 != 0
+    else:
+        st = random_state(11, c_max, n_inst, n_slots, t_limit=t_limit, device=cuda)
     args = [st[k] for k in SIM_DECODE_ARGS]
     before = decode_advance.launches
     got = decode_advance(*args, w=w, h=h, chunk=512)
