@@ -7,7 +7,8 @@ Builds ``ssd_scan`` and ``sim_decode`` from the tree's ``repro_torch``
 (into its ``build/``), then times each at the shape its main path gives
 it: the SSD scan at zamba2's prefill (B = 1, H = 80, P = N = 64, f32 x,
 bf16 B/C) at L = 256 and 200, and the decode-advance round at the Table-2
-fleet's stacked (P, I, S) = (2, 224, 128). Each is read two ways, cold
+fleet's stacked (P, I, S) = (2, 224, 128) (one lane, (1, 2, 224, 128), on
+trees whose kernel takes the grid's lane axis). Each is read two ways, cold
 (a 64 MB L2 flush before every launch, as ``chip_smoke.py`` reads it) and
 warm (no flush; the DES reaches its round with the slot arrays in L2):
 
@@ -24,6 +25,7 @@ parent). Needs one NVIDIA GPU and ``nvcc``; imports no jax.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -106,7 +108,8 @@ def main() -> None:
         out[f"ssd_L{L}_dev_ms"] = device_ms(scan, cold, "ssd_scan")
         out[f"ssd_L{L}_warm_dev_ms"] = device_ms(scan, warm, "ssd_scan")
 
-    st = random_state(0, [8192, 65_536], 224, 128, device=dev)
+    lane = {"lanes": 1} if "lanes" in inspect.signature(random_state).parameters else {}
+    st = random_state(0, [8192, 65_536], 224, 128, device=dev, **lane)
     ops = [st[k] for k in ("t_limit", "busy", "now", "nact", "free", "occ", "pre", "sq", "inp",
                            "gen", "rem", "blk", "ft", "tr", "c_max")]
 

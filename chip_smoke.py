@@ -40,12 +40,29 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    holds the ``sim_decode`` kernel against its plain version bit for bit at
    that fleet's stacked shapes (idle rows, ``t_limit = inf``, truncation at
    c_max, KV growth past the free blocks) and times both; runs the routed
-   and the homogeneous fleet through the kernel (its launch counter set to
-   0 just before the routed run and read just after; it must be > 0); and
-   runs a shorter routed trace on the card and on the CPU, whose records
+   fleet (10,000 requests) and the homogeneous fleet (2,000) through the
+   kernel (its launch counter set to 0 just before each run and read just
+   after; it must be > 0); and runs the 2,000-request routed trace on the
+   card and on the CPU, whose records
    and loop counters must be equal bit for bit; and profiles a short
-   routed run (device busy share, kernels per round);
-7. prints the earlier design's times at the JSON line's shapes on a line
+   routed run (device busy share, kernels per round). The kernel takes the
+   grid's lane axis; a single run is one lane, ``(G, P, I, S) = (1, 2, 224,
+   128)``;
+7. the batched grid (``run_fleet_grid(device="cuda")``, ``[grid]`` lines):
+   the DES half of Figure 6 as ``benchmarks/fig6_sensitivity.py::run_des``
+   runs it (Azure and LMSYS, 2,000 requests at 20 req/s, thresholds 2048 to
+   32,768, short pool c_max 32,768 x 2, long pool 65,536 x 1), with goodput,
+   TTFT p99 and the short fraction per lane; the Azure grid at 1,000
+   requests on the card and on the CPU, whose records and loop counts must
+   be equal bit for bit; the ``sim_decode`` kernel against its plain version
+   at the 16-lane Table-2 shape, a time limit a lane and one at +inf; and
+   the walls of threshold ladders of 1, 4 and 16 lanes (512 to 8192) and of
+   the single-lane ``FleetSim`` on one 2,000-request Table-2 trace, each with
+   its loop counts, host syncs, lanes a second and the device's busy share
+   (read on a 250-request trace, plain and under the profiler). Every run's
+   ``sim_decode`` counter is set to 0 just before it and read just after:
+   one launch a round;
+8. prints the earlier design's times at the JSON line's shapes on a line
    of their own (``[prior]``, copied from PERF.md, not measured here), the
    kernels' JSON line (each entry carries the timing floor; flash and paged
    entries their variant or split count, the SSD scan its P split and CTA
@@ -101,7 +118,7 @@ from repro_torch.launch.serve import run_workload, serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.transformer import quantize_kv  # noqa: E402
 from repro_torch.serving import ServeRequest, ServingEngine, TwoPoolServer  # noqa: E402
-from repro_torch.sim import A100_LLAMA3_70B, FleetSim, plan_fleet  # noqa: E402
+from repro_torch.sim import A100_LLAMA3_70B, FleetSim, plan_fleet, run_fleet_grid  # noqa: E402
 from repro_torch.sim import torch_engine  # noqa: E402
 from repro_torch.traces import TraceSpec, generate_trace_columns  # noqa: E402
 
@@ -164,8 +181,10 @@ POOLS = (("short", 8, 512), ("long", 2, 2048))
 LONG_POOL = ("long64k", 2, 65_536)
 
 # The paper's Table 2 fleet (1,000 req/s, B_short = 8192) on the DES.
-# ``requests`` is the routed and homogeneous runs' trace length, ``cross``
-# the CUDA-against-CPU trace's, ``profile`` the profiled run's.
+# ``requests`` is the routed run's trace length, ``cross`` the
+# CUDA-against-CPU trace's and the homogeneous run's (the shorter trace
+# keeps the whole script, grid phase included, near 750 s), ``profile`` the
+# profiled run's.
 DES = dict(trace="azure", rate=1000.0, seed=0, b_short=8192, requests=10_000, cross=2_000,
            profile=1_000)
 # sim_decode's bytes per slot and per (pool, instance) row, from the dtypes:
@@ -176,6 +195,18 @@ DES = dict(trace="azure", rate=1000.0, seed=0, b_short=8192, requests=10_000, cr
 SIM_DECODE_SLOT_BYTES = (1 + 6 * 4 + 8 + 1, 3 * 4 + 8 + 4 * 1)
 SIM_DECODE_ROW_BYTES = (1 + 8 + 4 + 4, 4 + 8)
 SIM_DECODE_SLOT_OPS = 40
+# The batched grid (``run_fleet_grid``). ``fig6``: the DES half of the
+# paper's Figure 6 as ``benchmarks/fig6_sensitivity.py::run_des`` runs it
+# (short pool c_max 32,768 x 2 instances, long pool 65,536 x 1); ``cross``
+# the Azure grid's length for the card-against-CPU check. ``ladders``: the
+# threshold ladders run on the Table-2 fleet over ``requests`` requests,
+# each lane count's thresholds in even steps from 512 to 8192; each run's
+# device busy share is read on a ``profile``-request trace of the same spec
+# (the profiler's own reading takes ~65 ms a round here, so a full run's
+# would cost minutes).
+GRID = dict(fig6_requests=2000, fig6_rate=20.0, fig6_seed=42,
+            fig6_thresholds=(2048, 4096, 8192, 16_384, 32_768), cross=1000,
+            requests=2000, ladders=(1, 4, 16), profile=250)
 
 
 def fail(msg: str) -> None:
@@ -488,7 +519,7 @@ def profile_decode(srv, tag: str, steps: int = 10) -> dict:
     """Where a decode step's time goes: the short pool's engine with all 8
     slots busy, ``steps`` decode steps under torch.profiler. Returns the
     step time, the device's busy share and the kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     model, params = srv.short_engine.model, srv.short_engine.params
     eng = ServingEngine(model, params, c_max=SERVE["short_cmax"], n_slots=SERVE["short_slots"])
@@ -499,15 +530,27 @@ def profile_decode(srv, tag: str, steps: int = 10) -> dict:
     for _ in range(3):  # admission + prefill, then warm decode steps
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The device trace can lose a few kernels, mostly at the start of the
+    # first profiled step, so a count may read low and never high; one
+    # warm-up step under the profiler before the counted ones makes that
+    # rarer. The schedule marks each step on the device as "ProfilerStep#",
+    # which is no kernel.
+    traced = []  # the counted steps' events, handed over when the trace ends
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps),
+                 on_trace_ready=lambda p: traced.extend(p.key_averages())) as prof:
+        eng.step()
+        prof.step()
         t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        for k in range(steps):
+            eng.step()  # ends on the sampled tokens' copy to the host
+            if k == steps - 1:  # before the last prof.step(), which ends the trace
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
     kernels = [
-        e for e in prof.key_averages()
+        e for e in traced
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not e.key.startswith("ProfilerStep")
     ]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
@@ -518,11 +561,11 @@ def profile_decode(srv, tag: str, steps: int = 10) -> dict:
     out["kernels_per_step"] = sum(e.count for e in kernels) / steps
     print(f"[{tag}] short pool, 8 busy slots: {out['step_ms']:.3f} ms per decode step, "
           f"device busy {100 * out['busy_share']:.1f}% of the wall, "
-          f"{out['kernels_per_step']:.0f} kernels per step (at most {MAX_KERNELS_PER_STEP[tag]})")
+          f"{out['kernels_per_step']:.1f} kernels per step (at most {MAX_KERNELS_PER_STEP[tag]})")
     for key, n, ms in out["top"]:
         print(f"[{tag}]   {ms:8.4f} ms/step  {n:4d}/step  {key}")
     if out["kernels_per_step"] > MAX_KERNELS_PER_STEP[tag]:
-        fail(f"{tag}: {out['kernels_per_step']:.0f} kernels per decode step, more than "
+        fail(f"{tag}: {out['kernels_per_step']:.1f} kernels per decode step, more than "
              f"{MAX_KERNELS_PER_STEP[tag]}")
     return out
 
@@ -624,14 +667,17 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
-def sim_decode_phase(dev, flush, shape: tuple[int, int, int], c_max: list[int]) -> dict:
+def sim_decode_phase(dev, flush, shape: tuple[int, int, int, int], c_max: list[int],
+                     t_limits: list) -> dict:
     """The kernel against its plain version on the card, bit for bit on all
-    ten outputs, at the routed fleet's stacked ``(P, I, S)`` shape; both
-    timed on the first state."""
-    P, I, S = shape
+    ten outputs, at a stacked ``(G, P, I, S)`` shape: the routed fleet's
+    (one lane) or the grid's; each of ``t_limits`` is one draw's time
+    limit (None: the default, a different one a lane; a list: one a lane).
+    Both timed on the first state."""
+    G, P, I, S = shape
     row = {}
-    for seed, t_limit in ((0, None), (1, math.inf), (2, None)):
-        st = random_state(seed, c_max, I, S, t_limit=t_limit, device=dev)
+    for seed, t_limit in enumerate(t_limits):
+        st = random_state(seed, c_max, I, S, t_limit=t_limit, lanes=G, device=dev)
         args = [st[k] for k in ("t_limit", "busy", "now", "nact", "free", "occ", "pre",
                                 "sq", "inp", "gen", "rem", "blk", "ft", "tr", "c_max")]
         kw = dict(w=A100_LLAMA3_70B.w_base, h=A100_LLAMA3_70B.h_per_seq,
@@ -643,21 +689,23 @@ def sim_decode_phase(dev, flush, shape: tuple[int, int, int], c_max: list[int]) 
         for k in OUTPUTS:
             a, b = got[k], want[k]
             if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(bits(a), bits(b)):
-                fail(f"sim_decode seed {seed}: output {k} differs from the plain version")
+                fail(f"sim_decode {shape} seed {seed}: output {k} differs from the plain version")
             if a.dtype == torch.float64:
                 err = max(err, (a - b).nan_to_num(0.0).abs().max().item())
         idle = int((~st["busy"] & (st["nact"] > 0)).sum())
         over = int((st["busy"] & (st["free"] == 0) & (got["k"] == 1)).sum())
         trunc = int(got["trunc_new"].sum())
         if not (idle and over and trunc):
-            fail(f"sim_decode seed {seed}: state lacks idle ({idle}), overflow ({over}) "
+            fail(f"sim_decode {shape} seed {seed}: state lacks idle ({idle}), overflow ({over}) "
                  f"or truncating ({trunc}) rows")
-        print(f"[sim_decode] (P, I, S) = {shape} seed {seed} t_limit "
-              f"{'inf' if t_limit else 'finite'}: 10 outputs bit-identical to the plain "
-              f"version; idle rows {idle}, overflow rows {over}, truncations {trunc}", flush=True)
+        limits = ", ".join(f"{x:.3f}" for x in st["t_limit"].tolist())
+        print(f"[sim_decode] (G, P, I, S) = {shape} seed {seed} t_limit ({limits}): 10 "
+              f"outputs bit-identical to the plain version; idle rows {idle}, overflow rows "
+              f"{over}, truncations {trunc}", flush=True)
         if not row:
-            slots, rows = P * I * S, P * I
-            nbytes = slots * sum(SIM_DECODE_SLOT_BYTES) + rows * sum(SIM_DECODE_ROW_BYTES) + 8 + 4 * P
+            slots, rows = G * P * I * S, G * P * I
+            nbytes = (slots * sum(SIM_DECODE_SLOT_BYTES) + rows * sum(SIM_DECODE_ROW_BYTES)
+                      + 8 * G + 4 * P)
             bnd, by = bound_ms(nbytes, slots * SIM_DECODE_SLOT_OPS, PEAK_F32_FLOPS)
             row = dict(
                 shape=shape, max_abs_err=err,
@@ -666,9 +714,9 @@ def sim_decode_phase(dev, flush, shape: tuple[int, int, int], c_max: list[int]) 
                 bound_ms=bnd, bound_by=by,
             )
         row["max_abs_err"] = max(row["max_abs_err"], err)
-    print(f"[sim_decode] kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms bound "
-          f"{row['bound_ms']:.5f} ms ({row['bound_by']}); no single PyTorch call computes "
-          f"this round", flush=True)
+    print(f"[sim_decode] {shape}: kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms "
+          f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); no single PyTorch call "
+          f"computes this round", flush=True)
     return row
 
 
@@ -714,8 +762,9 @@ def record_columns(sim) -> dict:
 def des_phase(dev, flush) -> dict:
     cols, plan, routed, homo = des_setup()
     n_short = routed["short"][0].n_seq
-    shape = (2, max(plan.short.instances, plan.long.instances), max(n_short, 16))
-    kernel = sim_decode_phase(dev, flush, shape, [DES["b_short"], 65_536])
+    shape = (1, 2, max(plan.short.instances, plan.long.instances), max(n_short, 16))
+    kernel = sim_decode_phase(dev, flush, shape, [DES["b_short"], 65_536],
+                              [None, math.inf, None])
 
     decode_advance.launches = 0
     run_des(routed, cols, dev, label="routed Table-2 fleet")
@@ -723,16 +772,16 @@ def des_phase(dev, flush) -> dict:
     print(f"[des] sim_decode launches on the routed run: {launches}", flush=True)
     if launches == 0:
         fail("sim_decode was never launched on the DES path")
+    short = generate_trace_columns(TraceSpec(
+        trace=DES["trace"], num_requests=DES["cross"], rate=DES["rate"], seed=DES["seed"],
+    ))
     decode_advance.launches = 0
-    run_des(homo, cols, dev, label="homogeneous fleet")
+    run_des(homo, short, dev, label="homogeneous fleet")
     if decode_advance.launches == 0:
         fail("sim_decode was never launched on the homogeneous run")
     print(f"[des] instances homogeneous {plan.g_homo} vs token-budget {plan.g_dual}: "
           f"savings {plan.savings:.4f}", flush=True)
 
-    short = generate_trace_columns(TraceSpec(
-        trace=DES["trace"], num_requests=DES["cross"], rate=DES["rate"], seed=DES["seed"],
-    ))
     on_card = run_des(routed, short, dev, label=f"routed, n={DES['cross']}")
     on_cpu = run_des(routed, short, torch.device("cpu"), label=f"routed, n={DES['cross']}")
     for key in ("iters", "rounds"):
@@ -748,7 +797,7 @@ def des_phase(dev, flush) -> dict:
           f"({sum(len(v['request_id']) for v in a.values())} rows), iters/rounds "
           f"{on_card['stats']['iters']}/{on_card['stats']['rounds']} on both", flush=True)
     profile_des(routed, dev)
-    return dict(kernel=kernel, launches=launches)
+    return dict(kernel=kernel, launches=launches, plan=plan, routed=routed, shape=shape)
 
 
 def profile_des(pools, dev) -> dict:
@@ -783,6 +832,141 @@ def profile_des(pools, dev) -> dict:
         print(f"[des-profile]   {e.self_device_time_total / rounds:8.2f} us/round "
               f"{e.count / rounds:6.2f}/round  {e.key[:70]}")
     return out
+
+
+def grid_run(label: str, fn, *, lanes: int, n: int, busy_fn=None) -> dict:
+    """One grid (or single-lane) run on the card: its wall, loop counts,
+    host syncs and sim_decode launches (the counter set to 0 just before
+    and read just after; one launch a round for all lanes). With
+    ``busy_fn``, the same call on a shorter trace, run once plain and once
+    under torch.profiler, gives the device's busy share: its kernels'
+    device time over that plain run's wall."""
+
+    def timed(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    decode_advance.launches = 0
+    out, wall = timed(fn)
+    launches = decode_advance.launches
+    stats = torch_engine.last_run_stats()
+    if launches != stats["rounds"] or launches == 0:
+        fail(f"{label}: {launches} sim_decode launches for {stats['rounds']} rounds")
+    busy, share = None, "not measured"
+    if busy_fn is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        _, short_wall = timed(busy_fn)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            timed(busy_fn)
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy = busy_ms / (short_wall * 1e3)
+        share = f"{100 * busy:.2f}% of the wall ({GRID['profile']}-request run)"
+    print(f"[grid] {label}: {lanes} lane(s), {n} requests: {wall:.3f} s wall, iters "
+          f"{stats['iters']} rounds {stats['rounds']} host syncs {stats['host_syncs']}, "
+          f"{lanes / wall:.3f} lanes a second, device busy {share}", flush=True)
+    return dict(out=out, stats=stats, wall_s=wall, busy_share=busy, launches=launches)
+
+
+def check_grid(grid, n: int, label: str) -> None:
+    """Every lane accounts for every request, with finite latencies."""
+    if not ((grid.completed + grid.rejected == n).all() and (grid.routed.sum(axis=1) == n).all()):
+        fail(f"{label}: completed + rejected or the routing split does not cover {n} requests")
+    if not (np.isfinite(grid.ttft_p99).all() and np.isfinite(grid.makespan).all()
+            and (grid.completed > 0).all()):
+        fail(f"{label}: non-finite metrics or a lane with no completion")
+
+
+def grid_phase(dev, flush, des: dict) -> dict:
+    """``run_fleet_grid`` on the card: the Fig. 6 DES grids, the Azure grid
+    on the card against the host CPU, the sim_decode kernel at the 16-lane
+    Table-2 shape against its plain version, and the walls of threshold
+    ladders of 1, 4 and 16 lanes beside the single-lane run."""
+    ths = [[b] for b in GRID["fig6_thresholds"]]
+    c_short = max(GRID["fig6_thresholds"])
+    fig6_pools = {
+        "short": (PoolConfig("short", c_short, n_seq_for_cmax(c_short), headroom=1.05), 2),
+        "long": (PoolConfig("long", 65_536, 16, headroom=1.02), 1),
+    }
+    n6 = GRID["fig6_requests"]
+    for trace in ("azure", "lmsys"):
+        cols = generate_trace_columns(TraceSpec(trace=trace, num_requests=n6,
+                                                rate=GRID["fig6_rate"], seed=GRID["fig6_seed"]))
+        run = grid_run(f"fig6 {trace}", lambda: run_fleet_grid(
+            cols, fig6_pools, A100_LLAMA3_70B, thresholds=ths, device=dev),
+            lanes=len(ths), n=n6)
+        grid = run["out"]
+        check_grid(grid, n6, f"fig6 {trace}")
+        short = grid.routed[:, 0] / grid.routed.sum(axis=1)
+        if not (np.diff(short) >= 0).all():
+            fail(f"fig6 {trace}: the short fraction falls as the threshold rises: {short}")
+        for i, b in enumerate(GRID["fig6_thresholds"]):
+            print(f"[grid] fig6/des/{trace}/b{b}: goodput {grid.goodput()[i]:.4f} req/s, TTFT "
+                  f"p99 {grid.ttft_p99[i]:.4f} s, short fraction {short[i]:.4f}, completed "
+                  f"{grid.completed[i]}, preempted {grid.preemptions[i]}", flush=True)
+
+    # card against host CPU, bit for bit
+    cols = generate_trace_columns(TraceSpec(trace="azure", num_requests=GRID["cross"],
+                                            rate=GRID["fig6_rate"], seed=GRID["fig6_seed"]))
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        grid = run_fleet_grid(cols, fig6_pools, A100_LLAMA3_70B, thresholds=ths,
+                              return_records=True, device=d)
+        runs[d.type] = (grid, torch_engine.last_run_stats())
+        print(f"[grid] azure fig6 grid, n={GRID['cross']}, on {d.type}: "
+              f"{time.perf_counter() - t0:.3f} s wall", flush=True)
+    (gg, gs), (cg, cs) = runs["cuda"], runs["cpu"]
+    for key in ("iters", "rounds", "iters_total", "rounds_total"):
+        if gs[key] != cs[key]:
+            fail(f"grid on the card and the CPU differ in {key}: {gs} vs {cs}")
+    for col, v in cg.records.items():
+        if gg.records[col].dtype != v.dtype or gg.records[col].tobytes() != v.tobytes():
+            fail(f"grid on the card and the CPU differ in records[{col!r}]")
+    print(f"[grid] azure fig6 grid, n={GRID['cross']}: card and CPU records bit-identical in "
+          f"all {len(ths)} lanes ({len(cg.records)} columns), iters/rounds "
+          f"{gs['iters']}/{gs['rounds']} (totals {gs['iters_total']}/{gs['rounds_total']}) on both",
+          flush=True)
+
+    # the kernel at the 16-lane Table-2 shape: a limit a lane, one at +inf
+    G = max(GRID["ladders"])
+    _, P, I, S = des["shape"]
+    limits = [1.5 + 0.05 * g for g in range(G - 1)] + [math.inf]
+    kernel = sim_decode_phase(dev, flush, (G, P, I, S), [DES["b_short"], 65_536],
+                              [limits, None])
+
+    # walls on the Table-2 fleet: ladders of 1, 4 and 16 lanes and the
+    # single-lane FleetSim, all on one trace
+    n = GRID["requests"]
+    cols, short = (generate_trace_columns(TraceSpec(trace=DES["trace"], num_requests=k,
+                                                    rate=DES["rate"], seed=DES["seed"]))
+                   for k in (n, GRID["profile"]))
+    routed = des["routed"]
+
+    def single(trace):
+        return lambda: FleetSim(routed, A100_LLAMA3_70B, b_short=DES["b_short"], backend="torch",
+                                device=dev, spillover=False).run(trace)
+
+    def ladder_of(g, trace):
+        ladder = [[int(b)] for b in np.linspace(512, 8192, g)] if g > 1 else [[8192]]
+        return lambda: run_fleet_grid(trace, routed, A100_LLAMA3_70B, thresholds=ladder,
+                                      device=dev)
+
+    walls = {"single": grid_run("FleetSim, single lane", single(cols), lanes=1, n=n,
+                                busy_fn=single(short))}
+    for g in GRID["ladders"]:
+        span = "8192" if g == 1 else "512..8192"
+        walls[g] = grid_run(f"ladder of {g} ({span})", ladder_of(g, cols), lanes=g, n=n,
+                            busy_fn=ladder_of(g, short))
+        check_grid(walls[g]["out"], n, f"ladder of {g}")
+    one = walls["single"]["wall_s"]
+    ratio = walls[G]["wall_s"] / (G * one)
+    print(f"[grid] {G}-lane wall / ({G} x single-lane wall) = {ratio:.4f}", flush=True)
+    return dict(kernel=kernel, launches=walls[G]["launches"])
 
 
 def sass_mma_counts() -> dict:
@@ -864,6 +1048,7 @@ def main() -> None:
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     des = des_phase(dev, flush)
+    grid = grid_phase(dev, flush, des)
     del flush
 
     # The JSON line carries each kernel at its path's shapes: the largest
@@ -900,7 +1085,10 @@ def main() -> None:
               h_launch["ssd_scan"], ssd_rows[256], "B=1 H=80 P=64 N=64 L=256"),
         entry("sim_decode", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
               "DES routed Table-2 fleet", des["launches"], des["kernel"],
-              f"(P, I, S) = {des['kernel']['shape']}"),
+              f"(G, P, I, S) = {des['kernel']['shape']}"),
+        entry("sim_decode_grid", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
+              f"run_fleet_grid, Table-2 fleet, {max(GRID['ladders'])} threshold lanes",
+              grid["launches"], grid["kernel"], f"(G, P, I, S) = {grid['kernel']['shape']}"),
     ]
     kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
     for k, row in zip(kernels[:6], (flash_rows[256], flash80[256], paged_rows["short"],

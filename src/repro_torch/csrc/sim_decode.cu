@@ -1,15 +1,19 @@
 // Fused DES decode-advance round for Hopper (sm_90a): one round of the
-// torch fleet-simulator tier over the stacked (P, I, S) slot arrays.
+// torch fleet-simulator tier over the stacked (G, P, I, S) slot arrays of G
+// grid lanes.
 //
 // Replaces: src/repro/kernels/sim_decode.py::decode_advance_pallas (body
 // _decode_kernel, grid (I,), one (1, S) slot row per program), the compiled
-// DES tier's decode-advance round, and the reference engine's per-pool
-// restack around it: here one launch covers every pool, with c_max a
-// per-pool int32 array.
+// DES tier's decode-advance round, the reference engine's per-pool restack
+// around it, and the vmap over grid lanes that run_fleet_grid puts around
+// both: here one launch covers every lane and every pool, with c_max a
+// per-pool int32 array and t_limit one float64 per lane. A single fleet run
+// is G = 1.
 //
-// Per (pool, instance) row: feed one prefill chunk to the oldest prefilling
-// slot (first-index argmin of sq over occ & pre > 0); compute the
-// event-distance k-jump min(min rem, min(c_max - ctx),
+// Per (lane, pool, instance) row, row = ((g * P) + p) * I + i, which reads
+// c_max[(row / I) % P] and t_limit[row / (P * I)]: feed one prefill chunk
+// to the oldest prefilling slot (first-index argmin of sq over occ &
+// pre > 0); compute the event-distance k-jump min(min rem, min(c_max - ctx),
 // ceil((t_limit - now) / t_it - 1e-9)), clamped to [1, 2^30] and forced to 1
 // with prefill or when the KV growth sum max(blocks_for(inp+gen+k) - blk, 0)
 // exceeds the row's free blocks; end = now + k * t_it with
@@ -27,16 +31,16 @@
 //
 // What bounds it on an H100: bytes. About 34 bytes in and 24 bytes out per
 // slot and a few per row, against a handful of integer operations per
-// byte; at the fleet shapes (a few hundred rows of at most 128 slots) the
-// whole pass moves under 3 MB, so a launch is microseconds of memory
+// byte; at the fleet shapes (a few hundred rows of at most 128 slots a
+// lane) one lane's pass moves under 3 MB, so a launch is microseconds of memory
 // traffic and, in practice, launch latency.
 //
 // What this design does about it: the first design (one 128-thread CTA a
 // row, five block reductions with two barriers each, four passes that each
 // re-read the slot fields as scalars) ran at ~1/11 of that bound. Here:
-//   * One warp per (pool, instance) row, four rows per 128-thread CTA (112
-//     CTAs at the Table-2 shape (2, 224, 128)); warps of rows past the end
-//     return at once.
+//   * One warp per (lane, pool, instance) row, four rows per 128-thread CTA
+//     (112 CTAs at the Table-2 shape (1, 2, 224, 128), 1,792 at sixteen
+//     lanes); warps of rows past the end return at once.
 //   * Each lane holds four consecutive slots. A row of up to 128 slots is
 //     read once, into registers: int32 fields as int4, four bools as one
 //     32-bit word, ft as two double2, where S % 4 == 0 and every slot
@@ -171,10 +175,11 @@ __global__ void __launch_bounds__(kThreads) decode_advance_kernel(
     const double* __restrict__ t_limit_p, const bool* __restrict__ busy_p,
     const double* __restrict__ now_p, const int* __restrict__ nact_p,
     const int* __restrict__ free_p, SlotIn in, const int* __restrict__ cmax_p,
-    SlotOut out, int* __restrict__ k_o, double* __restrict__ end_o, int rows, int I,
-    int S, double w, double h, int chunk, bool vec) {
+    SlotOut out, int* __restrict__ k_o, double* __restrict__ end_o, int rows, int P,
+    int I, int S, double w, double h, int chunk, bool vec) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRows + (threadIdx.x >> 5);  // pool * I + instance
+  // (grid lane * P + pool) * I + instance
+  const int row = blockIdx.x * kRows + (threadIdx.x >> 5);
   if (row >= rows) return;
   const long long base = static_cast<long long>(row) * S;
 
@@ -182,11 +187,11 @@ __global__ void __launch_bounds__(kThreads) decode_advance_kernel(
   // the row's segments and reads each again.
   Quad q;
   if (kOne) q.load(in, base + 4 * lane, S - 4 * lane, vec);
-  const double t_limit = *t_limit_p;
+  const double t_limit = t_limit_p[row / (P * I)];
   const bool busy = busy_p[row];
   const double now = now_p[row];
   const int free_blocks = free_p[row];
-  const int c_max = cmax_p[row / I];
+  const int c_max = cmax_p[(row / I) % P];
   const double t_it = __fma_rn(h, static_cast<double>(nact_p[row]), w);
   // The time limit's k needs only the row's scalars.
   const double qt = __ddiv_rn(__dsub_rn(t_limit, now), t_it);
@@ -331,9 +336,10 @@ extern "C" int sim_decode_advance(
     const void* inp, const void* gen, const void* rem, const void* blk,
     const void* ft, const void* tr, const void* c_max, void* pre_o,
     void* dec_o, void* k_o, void* end_o, void* gen_o, void* rem_o, void* ft_o,
-    void* trn_o, void* tra_o, void* comp_o, int P, int I, int S, double w,
+    void* trn_o, void* tra_o, void* comp_o, int G, int P, int I, int S, double w,
     double h, int chunk, void* stream) {
-  if (P <= 0 || I <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (G <= 0 || P <= 0 || I <= 0 || S <= 0 || static_cast<long long>(G) * P * I > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const SlotIn in{static_cast<const bool*>(occ), static_cast<const int*>(pre),
                   static_cast<const int*>(sq),   static_cast<const int*>(inp),
                   static_cast<const int*>(gen),  static_cast<const int*>(rem),
@@ -348,7 +354,7 @@ extern "C" int sim_decode_advance(
                                    pre_o, dec_o, gen_o, rem_o, ft_o, trn_o, tra_o, comp_o};
   bool vec = S % 4 == 0;
   for (const void* p : slot_ptrs) vec = vec && aligned16(p);
-  const int rows = P * I;
+  const int rows = G * P * I;
   const int grid = (rows + kRows - 1) / kRows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const double* tl = static_cast<const double*>(t_limit);
@@ -361,9 +367,9 @@ extern "C" int sim_decode_advance(
   double* eo = static_cast<double*>(end_o);
   if (S <= kSeg)
     decode_advance_kernel<true><<<grid, kThreads, 0, s>>>(
-        tl, bz, nw, na, fb, in, cm, out, ko, eo, rows, I, S, w, h, chunk, vec);
+        tl, bz, nw, na, fb, in, cm, out, ko, eo, rows, P, I, S, w, h, chunk, vec);
   else
     decode_advance_kernel<false><<<grid, kThreads, 0, s>>>(
-        tl, bz, nw, na, fb, in, cm, out, ko, eo, rows, I, S, w, h, chunk, vec);
+        tl, bz, nw, na, fb, in, cm, out, ko, eo, rows, P, I, S, w, h, chunk, vec);
   return static_cast<int>(cudaGetLastError());
 }

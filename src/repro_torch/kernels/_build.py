@@ -59,8 +59,8 @@ SIGNATURES = {
         "sim_decode_advance",
         # t_limit, busy, now, nact, free, occ, pre, sq, inp, gen, rem, blk,
         # ft, tr, c_max; outputs pre, dec, k, end, gen, rem, ft, trunc_new,
-        # tr, comp; P, I, S, w, h, chunk, stream
-        [_P] * 25 + [_I, _I, _I, _D, _D, _I, _P],
+        # tr, comp; G, P, I, S, w, h, chunk, stream
+        [_P] * 25 + [_I, _I, _I, _I, _D, _D, _I, _P],
     ),
 }
 

@@ -4,8 +4,9 @@ and its plain PyTorch version.
 Counterpart of ``repro.kernels.sim_decode`` (``decode_advance_pallas``, the
 Pallas kernel with grid ``(I,)``, and its oracle ``decode_advance_jnp``).
 One round of the torch DES tier (:mod:`repro_torch.sim.torch_engine`)
-advances every ``(pool, instance)`` row of the stacked ``(P, I, S)`` slot
-arrays; per row it
+advances every ``(lane, pool, instance)`` row of the stacked ``(G, P, I, S)``
+slot arrays of ``G`` grid lanes (``G = 1`` for a single fleet run; the
+reference vmaps its kernel over the lanes of ``run_fleet_grid``); per row it
 
 * feeds one prefill chunk to the oldest prefilling slot (first-index argmin
   of ``sq`` over ``occ & pre > 0``);
@@ -24,7 +25,8 @@ contracts ``w + h * nact`` and ``now + k * t_it`` into fused multiply-adds
 plain version, ``__fma_rn`` in the kernel), so they are bit-identical to the
 compiled reference and to each other. With dyadic timing constants the two
 roundings coincide, which is where the eager ``decode_advance_jnp`` agrees
-too. ``c_max`` is a per-pool int32 tensor, so one call covers every pool.
+too. ``c_max`` is a per-pool int32 tensor and ``t_limit`` one float64 per
+lane, so one call covers every lane and every pool.
 
 :func:`decode_advance` launches the kernel on CUDA tensors and runs
 :func:`decode_advance_plain` on CPU tensors.
@@ -53,20 +55,20 @@ def blocks_for(tok: torch.Tensor) -> torch.Tensor:
 
 
 def decode_advance_plain(
-    t_limit: torch.Tensor,  # () f64 — sweep boundary (next arrival / inf)
-    busy: torch.Tensor,  # (P, I) bool — due instances with active sequences
-    now: torch.Tensor,  # (P, I) f64 — per-instance wake time (0 where not busy)
-    nact: torch.Tensor,  # (P, I) i32 — active sequences per instance
-    free: torch.Tensor,  # (P, I) i32 — free KV blocks per instance
-    occ: torch.Tensor,  # (P, I, S) bool — slot occupied
-    pre: torch.Tensor,  # (P, I, S) i32 — prefill tokens remaining
-    sq: torch.Tensor,  # (P, I, S) i32 — admission sequence number
-    inp: torch.Tensor,  # (P, I, S) i32 — input tokens
-    gen: torch.Tensor,  # (P, I, S) i32 — generated tokens
-    rem: torch.Tensor,  # (P, I, S) i32 — output tokens remaining
-    blk: torch.Tensor,  # (P, I, S) i32 — KV blocks held
-    ft: torch.Tensor,  # (P, I, S) f64 — first-token time (nan = not yet)
-    tr: torch.Tensor,  # (P, I, S) bool — truncated flag
+    t_limit: torch.Tensor,  # (G,) f64 — each lane's sweep boundary (next arrival / inf)
+    busy: torch.Tensor,  # (G, P, I) bool — due instances with active sequences
+    now: torch.Tensor,  # (G, P, I) f64 — per-instance wake time (0 where not busy)
+    nact: torch.Tensor,  # (G, P, I) i32 — active sequences per instance
+    free: torch.Tensor,  # (G, P, I) i32 — free KV blocks per instance
+    occ: torch.Tensor,  # (G, P, I, S) bool — slot occupied
+    pre: torch.Tensor,  # (G, P, I, S) i32 — prefill tokens remaining
+    sq: torch.Tensor,  # (G, P, I, S) i32 — admission sequence number
+    inp: torch.Tensor,  # (G, P, I, S) i32 — input tokens
+    gen: torch.Tensor,  # (G, P, I, S) i32 — generated tokens
+    rem: torch.Tensor,  # (G, P, I, S) i32 — output tokens remaining
+    blk: torch.Tensor,  # (G, P, I, S) i32 — KV blocks held
+    ft: torch.Tensor,  # (G, P, I, S) f64 — first-token time (nan = not yet)
+    tr: torch.Tensor,  # (G, P, I, S) bool — truncated flag
     c_max: torch.Tensor,  # (P,) i32 — each pool's context window
     *,
     w: float,
@@ -74,7 +76,10 @@ def decode_advance_plain(
     chunk: int,
 ) -> dict[str, torch.Tensor]:
     """One fused decode-advance over the stacked slot arrays, in the
-    reference jnp twin's op order. Returns the dict of :data:`OUTPUTS`:
+    reference jnp twin's op order; each lane's ``t_limit`` broadcasts over
+    its rows. Without the lane axis (``(P, I, S)`` slots and a 0-d
+    ``t_limit``) it is one lane's round, as the reference's kernel takes it.
+    Returns the dict of :data:`OUTPUTS`:
     ``pre`` (post-chunk prefill), ``dec`` (decoding mask), ``k``/``end``
     (jump and end-of-round time per instance), advanced
     ``gen``/``rem``/``ft``/``tr``, ``trunc_new`` and ``comp``."""
@@ -85,22 +90,23 @@ def decode_advance_plain(
     t_it = fma64(ht, nact.to(f64), wt)  # w + h*nact, one rounding as in XLA
     bb = busy[..., None]
     cm = c_max.to(i32)[:, None, None]
+    tl = t_limit[..., None, None]  # a lane's limit over its (P, I) rows
 
     # one prefill chunk to the oldest prefilling sequence
     pmask = occ & (pre > 0)
-    has_pre = pmask.any(dim=2) & busy
+    has_pre = pmask.any(dim=-1) & busy
     # torch.argmin returns the first minimal index, as jnp.argmin does
-    oldest = torch.argmin(torch.where(pmask, sq, _BIG_I), dim=2)
-    oh = torch.arange(occ.shape[2], device=dev) == oldest[..., None]
-    take = torch.clamp(torch.where(oh, pre, 0).sum(dim=2, dtype=i32), max=chunk)
+    oldest = torch.argmin(torch.where(pmask, sq, _BIG_I), dim=-1)
+    oh = torch.arange(occ.shape[-1], device=dev) == oldest[..., None]
+    take = torch.clamp(torch.where(oh, pre, 0).sum(dim=-1, dtype=i32), max=chunk)
     pre_arr = pre - torch.where(oh & has_pre[..., None], take[..., None], 0)
 
     # event-distance k-jump
     dec = occ & (pre_arr == 0) & (rem > 0)
     ctx0 = inp + gen
-    k_complete = torch.where(dec, rem, _BIG_I).amin(dim=2)
-    k_trunc = torch.where(dec, cm - ctx0, _BIG_I).amin(dim=2)
-    q = (t_limit - now) / t_it
+    k_complete = torch.where(dec, rem, _BIG_I).amin(dim=-1)
+    k_trunc = torch.where(dec, cm - ctx0, _BIG_I).amin(dim=-1)
+    q = (tl - now) / t_it
     k_time = torch.where(torch.isfinite(q), torch.ceil(q - 1e-9), _BIG_F)
     k = torch.minimum(torch.minimum(k_complete, k_trunc).to(f64), k_time)
     k = torch.where(has_pre, 1.0, torch.clamp(k, min=1.0))
@@ -108,7 +114,7 @@ def decode_advance_plain(
 
     ng = gen + torch.where(dec, k[..., None], 0)
     nd = torch.where(occ, blocks_for(inp + ng), 0)
-    growth = torch.clamp(nd - blk, min=0).sum(dim=2, dtype=i32)
+    growth = torch.clamp(nd - blk, min=0).sum(dim=-1, dtype=i32)
     over = busy & (growth > free)
     k = torch.where(over, 1, k).to(i32)
     end = fma64(k.to(f64), t_it, now)  # now + k*t_it, one rounding as in XLA
@@ -145,27 +151,31 @@ _DTYPES = {
 }
 
 
-def _check(t_limit, rows, slots, c_max) -> tuple[int, int, int]:
+def _check(t_limit, rows, slots, c_max) -> tuple[int, int, int, int]:
     dev = t_limit.device
     tensors = [t_limit, c_max, *rows.values(), *slots.values()]
     if not (t_limit.is_cuda and all(t.device == dev for t in tensors)):
         raise ValueError("all decode_advance operands must lie on one CUDA device")
-    if t_limit.dtype != torch.float64 or t_limit.numel() != 1:
-        raise TypeError("t_limit must be one float64 element on the device")
+    if slots["occ"].dim() != 4:
+        raise ValueError(
+            f"the slot arrays must be (G, P, I, S), got {tuple(slots['occ'].shape)}"
+        )
+    g, p, i, s = slots["occ"].shape
+    if t_limit.dtype != torch.float64 or tuple(t_limit.shape) != (g,):
+        raise TypeError(f"t_limit must be ({g},) float64, one time limit a lane")
     if c_max.dtype != torch.int32 or c_max.dim() != 1:
         raise TypeError("c_max must be a (P,) int32 tensor")
-    p, i, s = slots["occ"].shape
     if c_max.shape[0] != p:
         raise ValueError(f"c_max has {c_max.shape[0]} pools, the slots {p}")
     for name, t in {**rows, **slots}.items():
         if t.dtype != _DTYPES[name]:
             raise TypeError(f"{name} must be {_DTYPES[name]}, got {t.dtype}")
-        want = (p, i) if name in rows else (p, i, s)
+        want = (g, p, i) if name in rows else (g, p, i, s)
         if tuple(t.shape) != want:
             raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_advance needs contiguous operands")
-    return p, i, s
+    return g, p, i, s
 
 
 def decode_advance(
@@ -190,9 +200,10 @@ def decode_advance(
     chunk: int,
 ) -> dict[str, torch.Tensor]:
     """The decode-advance round: the kernel on CUDA (one warp per
-    ``(pool, instance)`` row, four rows a CTA, one launch for every pool),
-    the plain version on the CPU. ``t_limit`` stays on the device, so a
-    launch needs no host sync."""
+    ``(lane, pool, instance)`` row, four rows a CTA, one launch for every
+    lane and pool; ``(G, P, I, S)`` slots and a ``(G,)`` ``t_limit``), the
+    plain version on the CPU. ``t_limit`` stays on the device, so a launch
+    needs no host sync."""
     if occ.device.type == "cpu":
         return decode_advance_plain(
             t_limit, busy, now, nact, free, occ, pre, sq, inp, gen, rem,
@@ -200,19 +211,19 @@ def decode_advance(
         )
     rows = dict(busy=busy, now=now, nact=nact, free=free)
     slots = dict(occ=occ, pre=pre, sq=sq, inp=inp, gen=gen, rem=rem, blk=blk, ft=ft, tr=tr)
-    p, i, s = _check(t_limit, rows, slots, c_max)
+    g, p, i, s = _check(t_limit, rows, slots, c_max)
     dev = occ.device
     out = {
-        "pre": torch.empty((p, i, s), dtype=torch.int32, device=dev),
-        "dec": torch.empty((p, i, s), dtype=torch.bool, device=dev),
-        "k": torch.empty((p, i), dtype=torch.int32, device=dev),
-        "end": torch.empty((p, i), dtype=torch.float64, device=dev),
-        "gen": torch.empty((p, i, s), dtype=torch.int32, device=dev),
-        "rem": torch.empty((p, i, s), dtype=torch.int32, device=dev),
-        "ft": torch.empty((p, i, s), dtype=torch.float64, device=dev),
-        "trunc_new": torch.empty((p, i, s), dtype=torch.bool, device=dev),
-        "tr": torch.empty((p, i, s), dtype=torch.bool, device=dev),
-        "comp": torch.empty((p, i, s), dtype=torch.bool, device=dev),
+        "pre": torch.empty((g, p, i, s), dtype=torch.int32, device=dev),
+        "dec": torch.empty((g, p, i, s), dtype=torch.bool, device=dev),
+        "k": torch.empty((g, p, i), dtype=torch.int32, device=dev),
+        "end": torch.empty((g, p, i), dtype=torch.float64, device=dev),
+        "gen": torch.empty((g, p, i, s), dtype=torch.int32, device=dev),
+        "rem": torch.empty((g, p, i, s), dtype=torch.int32, device=dev),
+        "ft": torch.empty((g, p, i, s), dtype=torch.float64, device=dev),
+        "trunc_new": torch.empty((g, p, i, s), dtype=torch.bool, device=dev),
+        "tr": torch.empty((g, p, i, s), dtype=torch.bool, device=dev),
+        "comp": torch.empty((g, p, i, s), dtype=torch.bool, device=dev),
     }
     fn = _build.kernel_fn("sim_decode")
     code = fn(
@@ -221,7 +232,7 @@ def decode_advance(
         *(t.data_ptr() for t in slots.values()),
         c_max.data_ptr(),
         *(out[name].data_ptr() for name in OUTPUTS),
-        p, i, s, float(w), float(h), int(chunk),
+        g, p, i, s, float(w), float(h), int(chunk),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("sim_decode", code)
@@ -239,7 +250,8 @@ def random_state(
     n_inst: int,
     n_slots: int,
     *,
-    t_limit: float | None = None,
+    t_limit: float | list[float] | None = None,
+    lanes: int | None = None,
     device: str | torch.device = "cpu",
 ) -> dict[str, torch.Tensor]:
     """A random slot state that respects the engine's invariants, for
@@ -250,9 +262,16 @@ def random_state(
     tokens short of ``c_max`` (truncation), prefilling slots and first
     tokens still to come. ``t_limit`` defaults to 0.75 s past the latest
     wake; pass ``math.inf`` for the final sweep. Keys: ``t_limit`` and the
-    decode inputs in :func:`decode_advance`'s order, then ``c_max``."""
+    decode inputs in :func:`decode_advance`'s order, then ``c_max``.
+
+    Without ``lanes`` the state is one lane's, ``(P, I, S)`` with a 0-d
+    ``t_limit``. With ``lanes=G`` it is ``(G, P, I, S)`` with a ``(G,)``
+    ``t_limit``: by default lane ``g``'s limit is ``0.75 + 0.25 * g`` s past
+    its latest wake, so every lane has its own; ``t_limit`` may also be one
+    value for all lanes or a list of ``G``."""
     rng = np.random.default_rng(seed)
-    shape = (len(c_max), n_inst, n_slots)
+    lead = (len(c_max),) if lanes is None else (lanes, len(c_max))
+    shape = lead + (n_inst, n_slots)
     cm = np.asarray(c_max, np.int64)[:, None, None]
     occ = rng.random(shape) < 0.7
     pre = np.where(occ & (rng.random(shape) < 0.3), rng.integers(1, 600, shape), 0)
@@ -262,13 +281,20 @@ def random_state(
     gen = np.where(occ & (pre == 0) & ~near, rng.integers(0, 48, shape), 0)
     rem = np.where(occ, rng.integers(1, 120, shape), 0)
     blk = np.where(occ, (inp + gen) // KV_BLOCK_TOKENS + 1, 0)
-    sq = np.stack([rng.permutation(n_inst * n_slots) for _ in c_max]).reshape(shape)
-    nact = occ.sum(axis=2)
-    busy = (nact > 0) & (rng.random(shape[:2]) < 0.8)
-    now = np.where(busy, rng.uniform(0.5, 2.0, shape[:2]), 0.0)
-    free = np.where(rng.random(shape[:2]) < 0.2, 0, rng.integers(0, 64, shape[:2]))
+    sq = np.stack(
+        [rng.permutation(n_inst * n_slots) for _ in range(int(np.prod(lead)))]
+    ).reshape(shape)
+    nact = occ.sum(axis=-1)
+    busy = (nact > 0) & (rng.random(shape[:-1]) < 0.8)
+    now = np.where(busy, rng.uniform(0.5, 2.0, shape[:-1]), 0.0)
+    free = np.where(rng.random(shape[:-1]) < 0.2, 0, rng.integers(0, 64, shape[:-1]))
     ft = np.where(occ & (gen > 0), rng.uniform(0.1, 1.0, shape), np.nan)
-    t_lim = float(now.max() + 0.75) if t_limit is None else float(t_limit)
+    if lanes is None:
+        t_lim = float(now.max() + 0.75) if t_limit is None else float(t_limit)
+    elif t_limit is None:
+        t_lim = now.reshape(lanes, -1).max(axis=1) + 0.75 + 0.25 * np.arange(lanes)
+    else:
+        t_lim = np.broadcast_to(np.asarray(t_limit, np.float64), (lanes,)).copy()
 
     def t(x, dt):
         return torch.as_tensor(np.asarray(x), dtype=dt).to(device).contiguous()

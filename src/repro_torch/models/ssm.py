@@ -12,6 +12,7 @@ Dimensions: B batch, L seq, H ssm heads, P head dim, G groups, N state.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -125,10 +126,17 @@ def _output(y, xh, z, params):
     return y @ params["w_out"]
 
 
+@functools.lru_cache(maxsize=None)
+def _zero(device: torch.device) -> torch.Tensor:
+    """A 0-dim f32 zero on ``device``, made once (``logaddexp`` takes no
+    Python scalar, and a new zero would be one fill launch a block)."""
+    return torch.zeros((), device=device)
+
+
 def _dt_decay(dt: torch.Tensor, params: dict):
     """softplus(dt + dt_bias) in f32 (``jax.nn.softplus`` = logaddexp(x, 0))
     and the negative decay ``-exp(a_log)``."""
-    dtp = torch.logaddexp(dt.float() + params["dt_bias"], torch.zeros((), device=dt.device))
+    dtp = torch.logaddexp(dt.float() + params["dt_bias"], _zero(dt.device))
     return dtp, -torch.exp(params["a_log"])
 
 

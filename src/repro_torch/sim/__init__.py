@@ -18,8 +18,12 @@ when a caller names them:
   loop as eager PyTorch over fixed-shape slot tensors on ``device``
   (``"cuda"`` by default), its decode-advance round in the hand-written
   ``sim_decode`` CUDA kernel. Bit-identical to the host backends in the
-  exact classes and to the reference's ``jax`` tier. The reference's
-  vmapped ``run_fleet_grid`` is not ported yet.
+  exact classes and to the reference's ``jax`` tier. Its batched sweep API
+  :func:`run_fleet_grid` runs whole fleet simulations across threshold /
+  instance-count / controller-gain axes as one run with the grid lanes as
+  a leading tensor axis (one ``sim_decode`` launch a round for every
+  lane), each lane bit-identical to the reference's vmapped
+  ``run_fleet_grid`` lane.
 
 Fleets route over a budget-ordered :class:`~repro_torch.core.pools.PoolSet`
 — any pool count, the paper's short/long pair being P=2.
@@ -33,6 +37,7 @@ transient slowdowns with retry/timeout/backoff and health-gated routing.
 from repro_torch.sim.engine import InstanceSim
 from repro_torch.sim.faults import FaultInjector, FaultRuntime, FaultSpec, RetryPolicy
 from repro_torch.sim.fleet import FleetResult, FleetSim, PoolSim, run_fleet
+from repro_torch.sim.torch_engine import FleetGridResult, run_fleet_grid
 from repro_torch.sim.metrics import (
     PAPER_SLO,
     RequestRecord,
@@ -71,6 +76,8 @@ __all__ = [
     "FleetSim",
     "PoolSim",
     "run_fleet",
+    "FleetGridResult",
+    "run_fleet_grid",
     "RequestRecord",
     "SimSummary",
     "SLOTarget",

@@ -1,61 +1,80 @@
-"""Device fleet backend (``backend="torch"``): the port of the reference's
-compiled tier, ``repro.sim.jax_engine``.
+"""Device fleet backend (``backend="torch"``) and batched sensitivity grids:
+the port of the reference's compiled tier, ``repro.sim.jax_engine``.
 
-The reference compiles the whole event loop into one ``lax.while_loop``.
-This module keeps that loop's semantics and structure and runs it as eager
-PyTorch on one device:
+The reference compiles the whole event loop into one ``lax.while_loop`` and
+``jax.vmap``\\ s it over grid lanes for :func:`run_fleet_grid`. This module
+keeps that loop's semantics and structure and runs it as eager PyTorch on
+one device, with the lanes as a leading axis ``G`` of every carried tensor
+(``G = 1`` for a single fleet run):
 
-* stacked ``(P, I, S)`` slot tensors for every pool at once (pools padded to
-  the widest instance and slot counts; padding is inert: padded slots are
-  never occupied, padded instances never wake), with per-pool ``c_max``,
-  ``n_seq`` and block budgets as ``(P,)`` tensors;
-* the outer epoch loop (one iteration per arrival burst, ``iters <= n+1``),
-  the arrival drain (dispatch while the next arrival is no later than every
-  instance wake) and the round sweep (rounds back-to-back until the next
-  arrival);
+* stacked ``(G, P, I, S)`` slot tensors for every lane and pool at once
+  (pools padded to the widest instance and slot counts, lanes to the widest
+  instance count of each pool; padding is inert: padded slots are never
+  occupied, padded and dead instances never wake), with per-pool
+  ``c_max``, ``n_seq`` and block budgets as ``(P,)`` tensors and per-lane
+  thresholds, instance counts and controller gains as ``(G, ...)`` tensors;
+* the outer epoch loop and the arrival drain (dispatch while the next
+  arrival is no later than every instance wake; lanes share the trace but
+  drain at their own wakes, each wave dispatching one arrival in every lane
+  that has one due). A single run then sweeps rounds back-to-back until the
+  next arrival (``iters <= n+1``); a grid runs exactly one masked round per
+  outer iteration for all lanes, each to its own next arrival, as the
+  reference's grid mode does (a nested sweep in lockstep runs every epoch to
+  the slowest lane's round count, 5.6x more rounds at G = 16 in the
+  reference's measurement). A lane whose trace is dispatched and whose
+  wakes are all infinite is done: its counters stop and its state no
+  longer moves (its masked rounds are no-ops);
 * ``pool_round``: head-of-line FIFO admission with KV-block reservation as
   a fixpoint (one admission wave per iteration) that drains a per-instance
   victim stash before the FIFO; the fused decode-advance round
   (:func:`repro_torch.kernels.sim_decode.decode_advance`, the ``sim_decode``
-  CUDA kernel on the GPU); the completion scatter into packed record
-  tensors written in place; and the order-free batch preemption rule as a
-  sort-free pass over the ``(S, S)`` slot square (pairwise ranks and masked
-  prefix sums), gated so the pass runs only when some instance is over its
-  block budget;
+  CUDA kernel on the GPU, one launch for every lane); the completion scatter
+  into packed ``(G, n, ...)`` record tensors written in place; and the
+  order-free batch preemption rule as a sort-free pass over the ``(S, S)``
+  slot square (pairwise ranks and masked prefix sums), gated so the pass
+  runs only when some instance of some lane is over its block budget (the
+  skipped pass is a no-op);
 * request-indexed FIFO linked lists (``qnext`` plus per-instance head and
   tail);
 * the in-loop AIMD controller, mirrored in float32 with the constants and
   feasibility projection of :class:`repro_torch.core.adaptive
-  .AdaptiveController`, on the same dispatched-request windows;
+  .AdaptiveController`, on the same dispatched-request windows, firing per
+  lane;
 * per-request budgets precomputed on the host
   (:func:`precompute_budget_trajectory`, a sequential float32 EMA fold in
-  arrival order on CPU tensors, as the reference folds on its host), so the
-  loop itself only does a ``searchsorted`` per dispatch.
+  arrival order on CPU tensors, as the reference folds on its host) and
+  shared by every lane, so the loop itself only does a ``searchsorted`` per
+  dispatch.
 
 Numerics follow the reference's compiled tier exactly: event times
 (``now``, ``ft``, ``end``, wakes, records) are float64 and counters int32,
 every tensor has an explicit dtype and device, and the products that XLA
 contracts into fused multiply-adds are fused here too (see
 :mod:`repro_torch.core.fma`). So the records are bit-identical to the
-reference's ``jax`` tier in every class, and to the host tiers in the exact
-classes (routerless single pool, ``coalesce_dt=0``, dyadic timing).
+reference's ``jax`` tier and to each lane of its ``run_fleet_grid`` in
+every class, and to the host tiers in the exact classes (routerless single
+pool, ``coalesce_dt=0``, dyadic timing).
 
-Loop control: the while conditions (next arrival against the earliest
-wake, the admission fixpoint, the eviction gate) read a device scalar on
-the host, one sync each; :func:`last_run_stats` counts them as
-``host_syncs``. The per-request records, the slot state and ``t_limit``
-stay on the device.
+Loop control: the while conditions (next arrival against each lane's
+earliest wake, the admission fixpoint, the eviction gate) read device
+values on the host, one read for all lanes each: one per drain wave, per
+admission wave and per round. :func:`last_run_stats` counts them as
+``host_syncs``. The arrival cursors and window counters evolve by counting
+alone, so the host and the device each keep their own copy and no host
+value is copied to the device inside the loop. The per-request records, the
+slot state and the time limits stay on the device.
 
-Left out, against the reference: the vmapped ``run_fleet_grid``, the AOT
-executable cache and its probes (XLA-specific), and the in-loop telemetry
-window snapshots and their replay (``FleetSim`` raises for telemetry,
-event tracing and fault injection on this backend).
+Left out, against the reference: the AOT executable cache and its probes
+(XLA-specific), and the in-loop telemetry window snapshots and their replay
+(``FleetSim`` raises for telemetry, event tracing and fault injection on
+this backend).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,22 +92,26 @@ from repro_torch.core.calibration import (
     estimate_budget,
     update_stream,
 )
+from repro_torch.core.pools import TOTAL_KV_BLOCKS, PoolConfig
 from repro_torch.core.router import pool_ids
+from repro_torch.device import resolve_device
 from repro_torch.kernels.sim_decode import (
     _BIG_I,
     blocks_for,
     decode_advance,
 )
+from repro_torch.sim.engine import _blocks_for
+from repro_torch.sim.timing import TimingModel
 from repro_torch.traces.generator import TraceColumns
 
 I32 = torch.int32
 F32 = torch.float32
 F64 = torch.float64
 
-#: Per-request record tensors (name, dtype, width), each ``(n, …)`` and
-#: indexed by request id. ``recf`` packs [first_token, finish]; ``reci``
-#: packs [out_tokens, preemptions, truncated(0/1)]; ``rejt`` stages the
-#: admission-reject time (+inf = not rejected).
+#: Per-request record tensors (name, dtype, width), each ``(G, n, …)`` and
+#: indexed by lane and request id. ``recf`` packs [first_token, finish];
+#: ``reci`` packs [out_tokens, preemptions, truncated(0/1)]; ``rejt``
+#: stages the admission-reject time (+inf = not rejected).
 _REC_DTYPES = (
     ("recf", F64, 2),
     ("reci", I32, 3),
@@ -122,24 +145,27 @@ class _SimSpec:
 
 def last_run_stats() -> dict:
     """Loop counters of the most recent run in this process: ``iters``
-    (outer epochs, at most ``n + 1``), ``rounds`` (sweep rounds),
-    ``host_syncs`` (device scalars read by the loop's conditions), ``n``,
-    ``mode`` (``"fleet"``) and ``device``."""
+    (outer epochs; at most ``n + 1`` for a single run), ``rounds`` (rounds
+    run), ``host_syncs`` (device reads by the loop's conditions, each
+    covering every lane), ``n``, ``mode`` (``"fleet"`` or ``"grid"``) and
+    ``device``. A grid adds ``g`` and reports ``iters`` / ``rounds`` as the
+    maxima over lanes, beside their sums ``iters_total`` /
+    ``rounds_total``, as the reference does."""
     return dict(_LAST_RUN)
 
 
-def _fresh_records(n: int, device: torch.device) -> dict:
-    """Record tensors for one run; ``rejt`` is +inf-filled."""
+def _fresh_records(n: int, g: int, device: torch.device) -> dict:
+    """Record tensors for one run of ``g`` lanes; ``rejt`` is +inf-filled."""
     rec = {}
     for name, dt, w in _REC_DTYPES:
-        shape = (n,) if w == 1 else (n, w)
+        shape = (g, n) if w == 1 else (g, n, w)
         fill = math.inf if name == "rejt" else 0
         rec[name] = torch.full(shape, fill, dtype=dt, device=device)
     return rec
 
 
-def _init_pools(spec: _SimSpec, n: int, device: torch.device) -> dict:
-    """Stacked ``(P, I, S)`` pool state (padded to the widest pool)."""
+def _init_pools(spec: _SimSpec, n: int, g: int, device: torch.device) -> dict:
+    """Stacked ``(G, P, I, S)`` pool state (padded to the widest pool)."""
     P = len(spec.pools)
     I = max(ps.max_inst for ps in spec.pools)
     S = max(ps.n_seq for ps in spec.pools)
@@ -151,7 +177,7 @@ def _init_pools(spec: _SimSpec, n: int, device: torch.device) -> dict:
     )
 
     def full(shape, value, dtype):
-        return torch.full(shape, value, dtype=dtype, device=device)
+        return torch.full((g,) + shape, value, dtype=dtype, device=device)
 
     return {
         "occ": full((P, I, S), False, torch.bool),
@@ -167,7 +193,7 @@ def _init_pools(spec: _SimSpec, n: int, device: torch.device) -> dict:
         "tr": full((P, I, S), False, torch.bool),
         "pc": full((P, I, S), 0, I32),
         "sq": full((P, I, S), 0, I32),
-        "free": torch.where(ivalid, tblocks[:, None], 0).to(I32),
+        "free": torch.where(ivalid, tblocks[:, None], 0).to(I32).expand(g, P, I).clone(),
         "wake": full((P, I), math.inf, F64),
         "nact": full((P, I), 0, I32),
         "qlen": full((P, I), 0, I32),
@@ -187,66 +213,85 @@ def _init_pools(spec: _SimSpec, n: int, device: torch.device) -> dict:
 
 
 class _FleetLoop:
-    """One single-lane fleet run: the reference's ``core`` as an object.
+    """One run of ``G`` lanes: the reference's ``core`` (vmapped over the
+    lanes in grid mode) as an object.
 
-    ``a`` (next arrival), ``iters``, ``rounds`` and the monitoring-window
-    counters are host integers: they evolve by counting alone, so they
-    need no device reads. Everything else lives on ``device``.
+    ``lanes`` holds the per-lane parameters: ``th`` ``(G, P-1)``, ``ninst``
+    ``(G, P)`` and ``ctrl``, a dict of ``(G,)`` controller gains. With
+    ``grid`` false the run sweeps rounds until the next arrival (``G`` must
+    be 1); with ``grid`` true it runs one round per outer iteration.
+
+    The arrival cursors ``a``, the monitoring-window counters and the loop
+    counters are host integer arrays: they evolve by counting alone. ``a``
+    and the window counters have device twins that the same masks advance,
+    so the loop never copies a host value to the device. Everything else
+    lives on ``device``.
     """
 
-    def __init__(self, spec: _SimSpec, trace: dict, lane: dict, device: torch.device):
+    def __init__(self, spec: _SimSpec, trace: dict, lanes: dict, device: torch.device,
+                 *, grid: bool):
         dev = self.dev = device
         self.spec = spec
+        self.grid = grid
         P = self.P = len(spec.pools)
         I = self.I = max(ps.max_inst for ps in spec.pools)
         S = self.S = max(ps.n_seq for ps in spec.pools)
         n = self.n = len(trace["arr"])
+        G = self.G = len(lanes["ninst"])
+        if not grid and G != 1:
+            raise ValueError("a single fleet run has one lane")
         self.win = spec.win_size
         self.cmax_v = torch.tensor([ps.c_max for ps in spec.pools], dtype=I32, device=dev)
         self.nseq_v = torch.tensor([ps.n_seq for ps in spec.pools], dtype=I32, device=dev)
         self.tblk_v = torch.tensor([ps.total_blocks for ps in spec.pools], dtype=I32, device=dev)
         self.pg = torch.arange(P, device=dev)
+        self.gl = torch.arange(G, device=dev)
         self.ar_s = torch.arange(S, device=dev)
         self.eye = torch.eye(S, dtype=torch.bool, device=dev)
-        # trace columns (arrival order); arr_p[n] = +inf is next_arr_at(n)
-        self.arr_host = np.asarray(trace["arr"], np.float64)
-        self.arr = torch.as_tensor(self.arr_host, dtype=F64).to(dev)
-        self.arr_p = torch.cat([self.arr, torch.full((1,), math.inf, dtype=F64, device=dev)])
+        # trace columns (arrival order), shared by the lanes;
+        # arr_p[n] = +inf is next_arr_at(n)
+        self.arr_host = np.append(np.asarray(trace["arr"], np.float64), math.inf)
+        self.arr = torch.as_tensor(self.arr_host[:n], dtype=F64).to(dev)
+        self.arr_p = torch.as_tensor(self.arr_host, dtype=F64).to(dev)
         self.inp = torch.as_tensor(trace["inp"], dtype=I32).to(dev)
         self.outp = torch.as_tensor(trace["outp"], dtype=I32).to(dev)
         self.bud = torch.as_tensor(trace["budget"], dtype=I32).to(dev)
         # lane parameters
-        self.th = torch.as_tensor(lane["th"], dtype=I32).to(dev)
-        ninst = torch.as_tensor(lane["ninst"], dtype=I32).to(dev)
-        self.ninst = ninst
-        self.alive = torch.arange(I, device=dev)[None, :] < ninst[:, None]
-        ctrl = lane["ctrl"]
-        self.ctrl_enabled = int(ctrl["enabled"]) > 0
-        self.b_min = torch.tensor(int(ctrl["b_min"]), dtype=I32, device=dev)
-        self.step = torch.tensor(int(ctrl["step"]), dtype=I32, device=dev)
-        self.factor = torch.tensor(float(ctrl["factor"]), dtype=F32, device=dev)
-        self.err_hi = torch.tensor(float(ctrl["err_hi"]), dtype=F32, device=dev)
-        self.over_hi = torch.tensor(float(ctrl["over_hi"]), dtype=F32, device=dev)
+        self.th = torch.as_tensor(np.asarray(lanes["th"]).reshape(G, P - 1), dtype=I32).to(dev)
+        self.ninst = torch.as_tensor(np.asarray(lanes["ninst"]), dtype=I32).to(dev)
+        self.alive = torch.arange(I, device=dev) < self.ninst[:, :, None]
+        ctrl = {k: np.asarray(v).reshape(G) for k, v in lanes["ctrl"].items()}
+        self.ctrl_on = torch.as_tensor(ctrl["enabled"] > 0).to(dev)
+        self.b_min = torch.as_tensor(ctrl["b_min"], dtype=I32).to(dev)
+        self.step = torch.as_tensor(ctrl["step"], dtype=I32).to(dev)
+        self.factor = torch.as_tensor(ctrl["factor"], dtype=F32).to(dev)
+        self.err_hi = torch.as_tensor(ctrl["err_hi"], dtype=F32).to(dev)
+        self.over_hi = torch.as_tensor(ctrl["over_hi"], dtype=F32).to(dev)
         # carried state
-        self.st = _init_pools(spec, n, dev)
-        self.rec = _fresh_records(n, dev)
-        self.a = 0
-        self.iters = 0
-        self.rounds = 0
+        self.st = _init_pools(spec, n, G, dev)
+        self.rec = _fresh_records(n, G, dev)
+        self.a = np.zeros(G, np.int64)
+        self.a_dev = torch.zeros(G, dtype=torch.int64, device=dev)
+        self.iters = np.zeros(G, np.int64)
+        self.rounds = np.zeros(G, np.int64)
         self.host_syncs = 0
-        self.win_seen = 0
-        self.win_prev = 0
-        self.prev_err = torch.zeros((P,), dtype=I32, device=dev)
-        self.moves = torch.zeros((), dtype=I32, device=dev)
-        self.win_t_req: list[int] = []
-        self.win_th: list[torch.Tensor] = []
-        self._wake_min = math.inf  # last value read from the device
+        self.win_seen = np.zeros(G, np.int64)
+        self.win_prev = np.zeros(G, np.int64)
+        self.win_seen_dev = torch.zeros(G, dtype=torch.int64, device=dev)
+        self.win_prev_dev = torch.zeros(G, dtype=torch.int64, device=dev)
+        self.prev_err = torch.zeros((G, P), dtype=I32, device=dev)
+        self.moves = torch.zeros((G,), dtype=I32, device=dev)
+        # (window fire mask, dispatched count, thresholds) at each boundary
+        self.win_log: list[tuple[np.ndarray, np.ndarray, torch.Tensor]] = []
+        self._wake_min = np.full(G, math.inf)  # last values read from the device
+        self._wake_min_dev = torch.full((G,), math.inf, dtype=F64, device=dev)
         self._wake_fresh = True  # no wake has changed since that read
 
     # -- host reads ----------------------------------------------------------
-    def _read(self, t: torch.Tensor):
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """One device tensor on the host: one sync."""
         self.host_syncs += 1
-        return t.item()
+        return t.cpu().numpy()
 
     def _read_all(self, *ts: torch.Tensor) -> list[int]:
         """Several device scalars (flags and counts) in one host read."""
@@ -259,113 +304,145 @@ class _FleetLoop:
         was read on the host already, so this needs no device sync."""
         return torch.nonzero_static(mask.flatten(), size=count)[:, 0]
 
-    def wake_min(self) -> float:
+    def wake_min(self) -> np.ndarray:
+        """Each lane's earliest wake, read once for all lanes when a wake
+        has changed since the last read."""
         if not self._wake_fresh:
-            self._wake_min = self._read(self.st["wake"].min())
+            self._wake_min_dev = self.st["wake"].view(self.G, -1).amin(dim=1)
+            self._wake_min = self._read(self._wake_min_dev)
             self._wake_fresh = True
         return self._wake_min
 
-    def next_arr_at(self, a: int) -> float:
-        return float(self.arr_host[a]) if a < self.n else math.inf
+    def live(self) -> np.ndarray:
+        """Lanes with arrivals left or a finite wake (the reference's loop
+        condition, per lane); reads the wakes only when some lane has
+        dispatched its whole trace."""
+        live = self.a < self.n
+        if not live.all():
+            live = live | np.isfinite(self.wake_min())
+        return live
 
     # -- monitoring window + in-loop AIMD controller ---------------------------
-    def window_step(self) -> None:
-        """One window boundary (only called when it fires): the AIMD rule of
-        ``AdaptiveController`` per boundary in float32, the feasibility
-        projection, then the threshold snapshot for the controller history."""
-        st = self.st
-        P = self.P
+    def window_step(self, fire: np.ndarray) -> None:
+        """One window boundary in the lanes of ``fire`` (only called when
+        some lane's fires): the AIMD rule of ``AdaptiveController`` per
+        boundary in float32, the feasibility projection, then the threshold
+        snapshot for the controller history. The device computes the same
+        fire mask from its own window counters."""
+        st, P = self.st, self.P
+        wr_dev = self.win_seen_dev - self.win_prev_dev
+        fire_dev = wr_dev >= self.win
         cur = st["npre"] + st["nrej"] + st["ntr"]
-        delta = cur - self.prev_err
-        wr = self.win_seen - self.win_prev
-        queues = st["qlen"].sum(dim=1, dtype=I32)
-        pressure = queues.to(F32) / torch.clamp(self.ninst, min=1).to(F32)
-        old = self.th
-        wrf = torch.tensor(float(max(wr, 1)), dtype=F32, device=self.dev)
-        props = []
-        for k in range(P - 1):
-            err_rate = delta[k].to(F32) / wrf
-            p_lo, p_hi = pressure[k], pressure[k + 1]
-            dec = (err_rate > self.err_hi) | (
-                (p_lo > self.over_hi * torch.clamp(p_hi, min=0.25)) & (p_lo > 1.0)
-            )
-            inc = (~dec) & (p_hi < 0.25) & (p_lo < 1.0)
-            down = (old[k].to(F32) * self.factor).to(I32)
-            props.append(torch.where(dec, down, torch.where(inc, old[k] + self.step, old[k])))
-        # feasibility projection: forward pass with a running lower bound;
-        # the degenerate case keeps the old vector
-        lo = self.b_min
-        feasible = torch.ones((), dtype=torch.bool, device=self.dev)
-        newv = []
-        for k in range(P - 1):
-            cap = self.spec.pools[k].c_max
-            feasible = feasible & (lo <= cap)
-            nk = torch.clamp(torch.maximum(props[k], lo), max=cap)
-            newv.append(nk)
-            lo = nk + 1
-        newv = torch.where(feasible, torch.stack(newv), old).to(I32)
-        if self.ctrl_enabled and wr > 0:
-            self.moves = self.moves + (newv != old).any().to(I32)
-            self.th = newv
-        self.win_t_req.append(self.win_seen)
-        self.win_th.append(self.th)
-        self.prev_err = cur
-        self.win_prev = self.win_seen
+        if P > 1:
+            delta = cur - self.prev_err
+            queues = st["qlen"].sum(dim=-1, dtype=I32)
+            pressure = queues.to(F32) / torch.clamp(self.ninst, min=1).to(F32)
+            old = self.th
+            wrf = torch.clamp(wr_dev, min=1).to(F32)
+            props = []
+            for k in range(P - 1):
+                err_rate = delta[:, k].to(F32) / wrf
+                p_lo, p_hi = pressure[:, k], pressure[:, k + 1]
+                dec = (err_rate > self.err_hi) | (
+                    (p_lo > self.over_hi * torch.clamp(p_hi, min=0.25)) & (p_lo > 1.0)
+                )
+                inc = (~dec) & (p_hi < 0.25) & (p_lo < 1.0)
+                down = (old[:, k].to(F32) * self.factor).to(I32)
+                props.append(
+                    torch.where(dec, down, torch.where(inc, old[:, k] + self.step, old[:, k]))
+                )
+            # feasibility projection: forward pass with a running lower
+            # bound; the degenerate case keeps the old vector
+            lo = self.b_min
+            feasible = torch.ones((self.G,), dtype=torch.bool, device=self.dev)
+            newv = []
+            for k in range(P - 1):
+                cap = self.spec.pools[k].c_max
+                feasible = feasible & (lo <= cap)
+                nk = torch.clamp(torch.maximum(props[k], lo), max=cap)
+                newv.append(nk)
+                lo = nk + 1
+            newv = torch.where(feasible[:, None], torch.stack(newv, dim=1), old).to(I32)
+            apply = fire_dev & self.ctrl_on & (wr_dev > 0)
+            self.moves = self.moves + (apply & (newv != old).any(dim=1)).to(I32)
+            self.th = torch.where(apply[:, None], newv, old)
+        self.win_log.append((fire.copy(), self.win_seen.copy(), self.th))
+        self.prev_err = torch.where(fire_dev[:, None], cur, self.prev_err)
+        self.win_prev = np.where(fire, self.win_seen, self.win_prev)
+        self.win_prev_dev = torch.where(fire_dev, self.win_seen_dev, self.win_prev_dev)
 
     # -- arrival drain -----------------------------------------------------------
-    def dispatch(self) -> None:
-        """Route arrival ``a`` (threshold search on its precomputed budget),
-        pick the least-loaded live instance of every pool, and enqueue it on
-        the chosen pool's instance (submit-time rejects only count)."""
-        st = self.st
-        a, n, pg = self.a, self.n, self.pg
-        t = self.arr[a]
+    def dispatch(self, m: np.ndarray) -> None:
+        """One drain wave: in each lane of ``m``, route its next arrival
+        (threshold search on its precomputed budget), pick the least-loaded
+        live instance of every pool, and enqueue it on the chosen pool's
+        instance (submit-time rejects only count). The device rebuilds
+        ``m`` from the wakes it was read from."""
+        st, n, G = self.st, self.n, self.G
+        a = self.a_dev
+        m_dev = (a < n) & (self.arr_p[a] <= self._wake_min_dev)
+        ac = torch.clamp(a, max=n - 1)
+        t = self.arr[ac]
         if self.P > 1:
-            pidx = pool_ids(self.th, self.bud[a])
+            pidx = pool_ids(self.th, self.bud[ac][:, None])[:, 0]
         else:
-            pidx = torch.zeros((), dtype=I32, device=self.dev)
-        self.rec["pool"][a] = pidx
-        sel = pidx == pg
-        i = torch.argmin(torch.where(self.alive, st["load"], _BIG_I), dim=1)
-        rej = self.inp[a] >= self.cmax_v
+            pidx = torch.zeros((G,), dtype=I32, device=self.dev)
+        prow = self.gl * n + ac
+        pool_flat = self.rec["pool"].view(-1)
+        pool_flat[prow] = torch.where(m_dev, pidx, pool_flat[prow])
+        sel = (pidx[:, None] == self.pg) & m_dev[:, None]
+        i = torch.argmin(torch.where(self.alive, st["load"], _BIG_I), dim=2)
+        rej = self.inp[ac][:, None] >= self.cmax_v
         ok = sel & ~rej
-        qh_i = st["qh"][pg, i]
-        qt_i = st["qt"][pg, i]
-        wake_i = st["wake"][pg, i]
+        gi, pi = self.gl[:, None], self.pg[None, :]
+        qh_i = st["qh"][gi, pi, i]
+        qt_i = st["qt"][gi, pi, i]
+        wake_i = st["wake"][gi, pi, i]
         was_empty = qh_i < 0
-        st["qnext"][pg, torch.where(ok, a, n)] = -1
-        st["qnext"][pg, torch.where(ok & ~was_empty, qt_i, n).long()] = a
-        st["qh"][pg, i] = torch.where(ok & was_empty, a, qh_i).to(I32)
-        st["qt"][pg, i] = torch.where(ok, a, qt_i).to(I32)
-        st["qlen"][pg, i] += ok.to(I32)
-        st["load"][pg, i] += ok.to(I32)
-        st["wake"][pg, i] = torch.where(ok & torch.isinf(wake_i), t, wake_i)
+        a_i = ac.to(I32)[:, None]
+        st["qnext"][gi, pi, torch.where(ok, ac[:, None], n)] = -1
+        st["qnext"][gi, pi, torch.where(ok & ~was_empty, qt_i, n).long()] = a_i.expand(-1, self.P)
+        st["qh"][gi, pi, i] = torch.where(ok & was_empty, a_i, qh_i)
+        st["qt"][gi, pi, i] = torch.where(ok, a_i, qt_i)
+        st["qlen"][gi, pi, i] += ok.to(I32)
+        st["load"][gi, pi, i] += ok.to(I32)
+        st["wake"][gi, pi, i] = torch.where(ok & torch.isinf(wake_i), t[:, None], wake_i)
         st["nrej"] += (sel & rej).to(I32)
         self._wake_fresh = False
-        self.a += 1
-        self.win_seen += 1
-        if self.win > 0 and self.win_seen - self.win_prev >= self.win:
-            self.window_step()
+        self.a += m
+        self.a_dev = a + m_dev
+        self.win_seen += m
+        self.win_seen_dev = self.win_seen_dev + m_dev
+        if self.win > 0:
+            fire = self.win_seen - self.win_prev >= self.win
+            if fire.any():
+                self.window_step(fire)
 
     def drain(self) -> None:
-        # Arrival-first tie-break: dispatch while t_arr <= every wake.
-        while self.a < self.n and self.next_arr_at(self.a) <= self.wake_min():
-            self.dispatch()
+        # Arrival-first tie-break: dispatch while t_arr <= every wake of the
+        # lane; one read of the wakes per wave.
+        n = self.n
+        while (self.a < n).any():
+            m = (self.a < n) & (self.arr_host[self.a] <= self.wake_min())
+            if not m.any():
+                return
+            self.dispatch(m)
 
-    # -- one masked round over the stacked pools ---------------------------------
+    # -- one masked round over the stacked lanes and pools -----------------------
     def admit(self, due: torch.Tensor) -> None:
         """Admission fixpoint: one wave admits or rejects at most one head
-        (victim stash first, then the FIFO) per due instance, until no
-        instance can make progress. Each instance fills at most one slot
-        per wave, written in place through its slot index."""
+        (victim stash first, then the FIFO) per due instance, in every lane,
+        until no instance can make progress. Each instance fills at most one
+        slot per wave, written in place through its slot index."""
         st, rec, n = self.st, self.rec, self.n
+        PI = self.P * self.I
         while True:
             stash = st["vcnt"] > 0
-            hrid = torch.where(stash, st["vrid"][:, :, 0], st["qh"])
+            hrid = torch.where(stash, st["vrid"][..., 0], st["qh"])
             has = due & (stash | (st["qh"] >= 0))
             hc = torch.clamp(hrid, 0, n - 1).long()
-            hinp = torch.where(stash, st["vinp"][:, :, 0], self.inp[hc])
-            hpc = torch.where(stash, st["vpc"][:, :, 0], 0)
+            hinp = torch.where(stash, st["vinp"][..., 0], self.inp[hc])
+            hpc = torch.where(stash, st["vpc"][..., 0], 0)
             need = blocks_for(hinp)
             can = st["nact"] < self.nseq_v[:, None]
             rejm = has & can & (need > self.tblk_v[:, None])
@@ -381,31 +458,31 @@ class _FleetLoop:
             if any_pop_st:
                 for key in ("vrid", "vinp", "vpc"):
                     st[key] = torch.where(
-                        pop_st[:, :, None], torch.roll(st[key], -1, dims=2), st[key]
+                        pop_st[..., None], torch.roll(st[key], -1, dims=-1), st[key]
                     )
             pop_f = prog & ~stash
-            nxt = torch.gather(st["qnext"], 1, torch.clamp(st["qh"], 0, n).long())
+            nxt = torch.gather(st["qnext"], 2, torch.clamp(st["qh"], 0, n).long())
             st["qt"] = torch.where(pop_f & (nxt < 0), -1, st["qt"]).to(I32)
             st["qh"] = torch.where(pop_f, nxt, st["qh"])
             if n_rej:
                 # stage the reject time (the host's first = finish = now)
                 rows = self._rows(rejm, n_rej)
-                rec["rejt"].index_copy_(
-                    0, hc.flatten()[rows], st["wake"].flatten()[rows]
+                rec["rejt"].view(-1).index_copy_(
+                    0, (rows // PI) * n + hc.flatten()[rows], st["wake"].flatten()[rows]
                 )
             base = st["sqc"]
             admi = admm.to(I32)
             if n_adm:
                 # admit into the first free slot of each admitting instance
                 rows = self._rows(admm, n_adm)
-                slot = torch.argmin(st["occ"].to(I32), dim=2).flatten()[rows]
+                slot = torch.argmin(st["occ"].to(I32), dim=-1).flatten()[rows]
                 flat = rows * self.S + slot
-                rank = torch.cumsum(admi, dim=1, dtype=I32) - admi
+                rank = torch.cumsum(admi, dim=-1, dtype=I32) - admi
                 out_h = self.outp[hc]
                 for key, val in (
                     ("rid", hrid), ("enq", self.arr[hc]), ("inp", hinp),
                     ("outp", out_h), ("pre", hinp), ("rem", out_h),
-                    ("blk", need), ("pc", hpc), ("sq", base[:, None] + rank),
+                    ("blk", need), ("pc", hpc), ("sq", base[..., None] + rank),
                 ):
                     st[key].view(-1).index_copy_(0, flat, val.flatten()[rows])
                 for key, val in (
@@ -415,8 +492,8 @@ class _FleetLoop:
             st["vcnt"] = st["vcnt"] - pop_st.to(I32)
             st["qlen"] = st["qlen"] - prog.to(I32)
             st["load"] = st["load"] - rejm.to(I32)
-            st["nrej"] = st["nrej"] + rejm.sum(dim=1, dtype=I32)
-            st["sqc"] = base + admm.sum(dim=1, dtype=I32)
+            st["nrej"] = st["nrej"] + rejm.sum(dim=-1, dtype=I32)
+            st["sqc"] = base + admm.sum(dim=-1, dtype=I32)
             st["free"] = st["free"] - torch.where(admm, need, 0)
             st["nact"] = st["nact"] + admi
 
@@ -429,39 +506,33 @@ class _FleetLoop:
         st, S = self.st, self.S
         keyq = torch.where(surv, -st["enq"], math.inf)
         sq = st["sq"]
-        k_a, k_b = keyq[:, :, :, None], keyq[:, :, None, :]
-        sq_lt = sq[:, :, None, :] < sq[:, :, :, None]  # [a, b]: b before a
+        k_a, k_b = keyq[..., :, None], keyq[..., None, :]
+        sq_lt = sq[..., None, :] < sq[..., :, None]  # [a, b]: b before a
         prec = (k_b < k_a) | ((k_b == k_a) & sq_lt)
-        rank = prec.sum(dim=3, dtype=I32)
+        rank = prec.sum(dim=-1, dtype=I32)
         le = prec | self.eye
         blkv = torch.where(surv, blk0, 0)
-        cum_blk = torch.where(le, blkv[:, :, None, :], 0).sum(dim=3, dtype=I32)
-        cum_grow = torch.where(le, grow[:, :, None, :], 0).sum(dim=3, dtype=I32)
-        okj = demand[:, :, None] - cum_grow <= free1[:, :, None] + cum_blk
-        first_ok = torch.where(okj, rank, S).amin(dim=2)
+        cum_blk = torch.where(le, blkv[..., None, :], 0).sum(dim=-1, dtype=I32)
+        cum_grow = torch.where(le, grow[..., None, :], 0).sum(dim=-1, dtype=I32)
+        okj = demand[..., None] - cum_grow <= free1[..., None] + cum_blk
+        first_ok = torch.where(okj, rank, S).amin(dim=-1)
         jsel = torch.where(
             demand <= free1, 0, torch.where(first_ok < S, first_ok + 1, 1)
         )
-        ev = (rank < jsel[:, :, None]) & surv
-        nev = ev.sum(dim=2, dtype=I32)
-        vrank = (ev[:, :, None, :] & sq_lt).sum(dim=3, dtype=I32)
+        ev = (rank < jsel[..., None]) & surv
+        nev = ev.sum(dim=-1, dtype=I32)
+        vrank = (ev[..., None, :] & sq_lt).sum(dim=-1, dtype=I32)
         rr = self.ar_s
-        in_new = rr[None, None, :] < nev[:, :, None]
+        in_new = rr < nev[..., None]
         # vm[j, a]: stash slot j takes the victim in slot a (victim rank j);
         # om[j, a]: stash slot j takes previous-stash slot a = j - n_victims
-        vm = (
-            ev[:, :, None, :]
-            & (vrank[:, :, None, :] == rr[None, None, :, None])
-            & in_new[:, :, :, None]
-        )
-        om = (
-            rr[None, None, None, :] == rr[None, None, :, None] - nev[:, :, None, None]
-        ) & ~in_new[:, :, :, None]
+        vm = ev[..., None, :] & (vrank[..., None, :] == rr[:, None]) & in_new[..., :, None]
+        om = (rr == rr[:, None] - nev[..., None, None]) & ~in_new[..., :, None]
 
         def stash(old3, vals):
-            return torch.where(vm, vals[:, :, None, :], 0).sum(
-                dim=3, dtype=I32
-            ) + torch.where(om, old3[:, :, None, :], 0).sum(dim=3, dtype=I32)
+            return torch.where(vm, vals[..., None, :], 0).sum(
+                dim=-1, dtype=I32
+            ) + torch.where(om, old3[..., None, :], 0).sum(dim=-1, dtype=I32)
 
         vr = stash(st["vrid"], st["rid"])
         vi = stash(st["vinp"], inp2 + gen_a)
@@ -469,9 +540,10 @@ class _FleetLoop:
         return ev, nev, vr, vi, vp
 
     def pool_round(self, t_limit: torch.Tensor) -> None:
+        """One masked round of every lane, each to its own ``t_limit``."""
         st, rec, n = self.st, self.rec, self.n
-        P, I, S = self.P, self.I, self.S
-        due = st["wake"] < t_limit
+        G, P, I, S = self.G, self.P, self.I, self.S
+        due = st["wake"] < t_limit[:, None, None]
         self.admit(due)
 
         nact = st["nact"]
@@ -483,7 +555,7 @@ class _FleetLoop:
             st["wake"],
         )
         now = torch.where(busy, st["wake"], 0.0)
-        bb = busy[:, :, None]
+        bb = busy[..., None]
         occ = st["occ"]
         inp2, gen0, rem0, blk0 = st["inp"], st["gen"], st["rem"], st["blk"]
 
@@ -496,25 +568,25 @@ class _FleetLoop:
         gen_a, rem_a, ft_a, tr_a, comp = (
             adv["gen"], adv["rem"], adv["ft"], adv["tr"], adv["comp"]
         )
-        ntr = st["ntr"] + adv["trunc_new"].sum(dim=(1, 2), dtype=I32)
+        ntr = st["ntr"] + adv["trunc_new"].sum(dim=(-2, -1), dtype=I32)
 
-        ncomp = comp.sum(dim=2, dtype=I32)
-        free1 = st["free"] + torch.where(comp, blk0, 0).sum(dim=2, dtype=I32)
+        ncomp = comp.sum(dim=-1, dtype=I32)
+        free1 = st["free"] + torch.where(comp, blk0, 0).sum(dim=-1, dtype=I32)
         surv = dec & (rem_a > 0) & bb
         need_s = torch.where(surv, blocks_for(inp2 + gen_a), blk0)
         grow = torch.where(surv, need_s - blk0, 0)
-        demand = grow.sum(dim=2, dtype=I32)
+        demand = grow.sum(dim=-1, dtype=I32)
         over, n_comp = self._read_all((demand > free1).any(), ncomp.sum())
 
         # completion scatter into the record tensors, in place (request ids
-        # are unique, so every row is written at most once)
+        # are unique within a lane, so every row is written at most once)
         if n_comp:
             rows = self._rows(comp, n_comp)
-            ids = st["rid"].flatten()[rows].long()
-            rec["recf"].index_copy_(0, ids, torch.stack(
+            ids = (rows // (P * I * S)) * n + st["rid"].flatten()[rows].long()
+            rec["recf"].view(-1, 2).index_copy_(0, ids, torch.stack(
                 [ft_a.flatten()[rows], end.flatten()[rows // S]], dim=-1
             ))
-            rec["reci"].index_copy_(0, ids, torch.stack(
+            rec["reci"].view(-1, 3).index_copy_(0, ids, torch.stack(
                 [gen_a.flatten()[rows], st["pc"].flatten()[rows],
                  tr_a.flatten()[rows].to(I32)], dim=-1
             ))
@@ -525,13 +597,13 @@ class _FleetLoop:
             )
         else:
             # demand <= free everywhere: nothing evicts, the stash stays
-            evict = torch.zeros((P, I, S), dtype=torch.bool, device=self.dev)
-            nevict = torch.zeros((P, I), dtype=I32, device=self.dev)
+            evict = torch.zeros((G, P, I, S), dtype=torch.bool, device=self.dev)
+            nevict = torch.zeros((G, P, I), dtype=I32, device=self.dev)
             vrid, vinp, vpc = st["vrid"], st["vinp"], st["vpc"]
-        npre = st["npre"] + evict.sum(dim=(1, 2), dtype=I32)
-        free1 = free1 + torch.where(evict, blk0, 0).sum(dim=2, dtype=I32)
+        npre = st["npre"] + evict.sum(dim=(-2, -1), dtype=I32)
+        free1 = free1 + torch.where(evict, blk0, 0).sum(dim=-1, dtype=I32)
         keep = surv & ~evict
-        free1 = free1 - torch.where(keep, grow, 0).sum(dim=2, dtype=I32)
+        free1 = free1 - torch.where(keep, grow, 0).sum(dim=-1, dtype=I32)
         cleared = comp | evict
         nact_a = nact - ncomp - nevict
         qlen_a = st["qlen"] + nevict
@@ -563,45 +635,55 @@ class _FleetLoop:
 
     # -- outer epoch loop ----------------------------------------------------------
     def run(self) -> dict:
-        n = self.n
-        while self.a < n or math.isfinite(self.wake_min()):
+        while (live := self.live()).any():
             self.drain()
-            # Coalesced sweep: rounds back-to-back until the next arrival.
-            t_lim = self.next_arr_at(self.a)
-            t_limit = self.arr_p[self.a]  # the same value, on the device
-            while self.wake_min() < t_lim:
+            t_limit = self.arr_p[self.a_dev]  # each lane's next arrival
+            if self.grid:
+                # exactly one masked round per outer iteration for all lanes
                 self.pool_round(t_limit)
-                self.rounds += 1
-            self.iters += 1
+                self.rounds += live
+            else:
+                # coalesced sweep: rounds back-to-back until the next arrival
+                t_lim = self.arr_host[self.a[0]]
+                while self.wake_min()[0] < t_lim:
+                    self.pool_round(t_limit)
+                    self.rounds += 1
+            self.iters += live
         return self.fold_records()
 
     def fold_records(self) -> dict:
         """Post-loop: admission rejects (finite staged time) and submit
         rejects (prompt >= the recorded pool's C_max) get first = finish =
-        the reject time. Returns host arrays of the n request rows."""
-        rec, n = self.rec, self.n
-        rejt = rec["rejt"][:n]
-        pool = rec["pool"][:n]
+        the reject time. Returns the ``(G, n, ...)`` record tensors on the
+        device and the counters on the host."""
+        rec, st = self.rec, self.st
+        rejt, pool = rec["rejt"], rec["pool"]
         arej = torch.isfinite(rejt)
         rejm = arej | (self.inp >= self.cmax_v[pool.long()])
         recf = torch.where(
-            rejm[:, None], torch.where(arej, rejt, self.arr)[:, None], rec["recf"][:n]
+            rejm[..., None], torch.where(arej, rejt, self.arr)[..., None], rec["recf"]
         )
-        host = {
-            "recf": recf.cpu().numpy(),
-            "reci": rec["reci"][:n].cpu().numpy(),
-            "pool": pool.cpu().numpy(),
-            "rejt": rejt.cpu().numpy(),
-            "rej": rejm.cpu().numpy(),
-            "preempt": self.st["npre"].cpu().numpy(),
-            "reject": self.st["nrej"].cpu().numpy(),
-            "truncate": self.st["ntr"].cpu().numpy(),
+        return {
+            "recf": recf,
+            "reci": rec["reci"],
+            "pool": pool,
+            "rejt": rejt,
+            "rej": rejm,
+            "preempt": st["npre"].cpu().numpy(),
+            "reject": st["nrej"].cpu().numpy(),
+            "truncate": st["ntr"].cpu().numpy(),
             "th": self.th.cpu().numpy(),
-            "moves": int(self.moves),
-            "win_t_req": list(self.win_t_req),
-            "win_th": [t.cpu().numpy() for t in self.win_th],
+            "moves": self.moves.cpu().numpy(),
         }
-        return host
+
+    def history(self, lane: int) -> list[tuple[int, np.ndarray]]:
+        """One lane's ``(dispatched count, thresholds)`` at each of its
+        window boundaries."""
+        return [
+            (int(seen[lane]), th[lane].cpu().numpy())
+            for fire, seen, th in self.win_log
+            if fire[lane]
+        ]
 
 
 # ---------------------------------------------------------------------------
@@ -771,23 +853,24 @@ def run_fleet_torch(fleet, trace):
         "budget": np.zeros(n, np.int32) if budgets is None else budgets,
     }
     lane = {
-        "th": np.asarray(th0, np.int32),
+        "th": np.asarray([th0], np.int32).reshape(1, P - 1),
         "ninst": np.asarray(
-            [fleet.pools[name].num_instances for name in ordered], np.int32
+            [[fleet.pools[name].num_instances for name in ordered]], np.int32
         ),
         "ctrl": _ctrl_params(fleet.controller, enabled=True),
     }
-    loop = _FleetLoop(spec, trace_arrays, lane, fleet.device)
-    out = loop.run()
+    loop = _FleetLoop(spec, trace_arrays, lane, fleet.device, grid=False)
+    dev_out = loop.run()
     _LAST_RUN.clear()
     _LAST_RUN.update(
         mode="fleet",
         n=n,
-        iters=loop.iters,
-        rounds=loop.rounds,
+        iters=int(loop.iters[0]),
+        rounds=int(loop.rounds[0]),
         host_syncs=loop.host_syncs,
         device=str(fleet.device),
     )
+    out = {k: (v[0].cpu().numpy() if torch.is_tensor(v) else v[0]) for k, v in dev_out.items()}
 
     ids = np.asarray(cols.request_id, np.int64)
     arr = np.asarray(cols.arrival_time, np.float64)
@@ -817,7 +900,7 @@ def run_fleet_torch(fleet, trace):
 
     if router is not None and fleet.controller is not None:
         router.pools.set_thresholds([int(b) for b in out["th"][: P - 1]])
-        _synthesize_history(fleet.controller, out, th0)
+        _synthesize_history(fleet.controller, loop.history(0), th0)
 
     return FleetResult(
         summary=summarize_columns("fleet", fleet_cols),
@@ -834,12 +917,12 @@ def run_fleet_torch(fleet, trace):
     )
 
 
-def _synthesize_history(controller, out: dict, th0: list) -> None:
+def _synthesize_history(controller, history: list, th0: list) -> None:
     """Rebuild a BoundaryMove trajectory from the window threshold
     snapshots: diffing consecutive snapshots recovers when each boundary
     moved and to what value (reason ``"device"``, as the reference)."""
     prev = list(th0)
-    for t_req, th in zip(out["win_t_req"], out["win_th"]):
+    for t_req, th in history:
         cur = [int(b) for b in th[: len(prev)]]
         for k, (a, b) in enumerate(zip(prev, cur)):
             if a != b:
@@ -847,3 +930,263 @@ def _synthesize_history(controller, out: dict, th0: list) -> None:
                     BoundaryMove(t=int(t_req), boundary=k, value=b, reason="device")
                 )
         prev = cur
+
+
+# ---------------------------------------------------------------------------
+# Batched sensitivity grids
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class FleetGridResult:
+    """Columnar results of one fleet sweep (G grid lanes); the counterpart
+    of the reference's class of the same name.
+
+    Per-lane reductions are computed on the device over the *full* run (no
+    warm-up discard — grid metrics are for relative comparisons across
+    lanes; use a single-lane ``FleetSim`` run for paper-grade numbers).
+    Percentiles are linear-interpolation (``torch.nanquantile``, as
+    ``jnp.nanpercentile``), not the nearest-rank convention of
+    :func:`repro_torch.sim.metrics.summarize`.
+    """
+
+    pool_names: tuple[str, ...]
+    thresholds: np.ndarray  # (G, P-1) initial boundary vectors
+    instances: np.ndarray  # (G, P) instance counts
+    completed: np.ndarray  # (G,)
+    rejected: np.ndarray  # (G,)
+    truncated: np.ndarray  # (G,)
+    preemptions: np.ndarray  # (G,) fleet total
+    routed: np.ndarray  # (G, P) dispatches per pool
+    ttft_mean: np.ndarray
+    ttft_p50: np.ndarray
+    ttft_p99: np.ndarray
+    tpot_mean: np.ndarray
+    tpot_p99: np.ndarray
+    makespan: np.ndarray  # (G,) max finish − min arrival
+    final_thresholds: np.ndarray  # (G, P-1) post-controller vectors
+    controller_moves: np.ndarray  # (G,)
+    #: (G, n) per-request record arrays when ``return_records=True``.
+    records: Optional[dict] = None
+
+    def __len__(self) -> int:
+        return len(self.completed)
+
+    def goodput(self) -> np.ndarray:
+        """Completed non-truncated requests per second, per lane."""
+        span = np.maximum(self.makespan, 1e-12)
+        return (self.completed - self.truncated) / span
+
+
+def _broadcast_axis(values, g: int, name: str):
+    if len(values) == 1:
+        return [values[0]] * g
+    if len(values) != g:
+        raise ValueError(
+            f"grid axis {name!r} has length {len(values)}, expected 1 or {g}"
+        )
+    return list(values)
+
+
+def _pool_spec(name: str, cfg: PoolConfig, max_inst: int) -> _PoolSpec:
+    total = min(TOTAL_KV_BLOCKS, cfg.n_seq * _blocks_for(cfg.c_max))
+    return _PoolSpec(
+        name=name,
+        c_max=int(cfg.c_max),
+        n_seq=int(cfg.n_seq),
+        total_blocks=int(total),
+        max_inst=int(max_inst),
+    )
+
+
+def _grid_metrics(out: dict, arr: torch.Tensor, P: int) -> dict:
+    """Per-lane reductions on the device, as the reference computes them
+    after its loop: counts, routing split, TTFT / TPOT means and linear
+    percentiles, the end time and the makespan."""
+    first, finish = out["recf"][..., 0], out["recf"][..., 1]
+    out_tok = out["reci"][..., 0]
+    compm = ~out["rej"]
+    ttft = torch.where(compm, first - arr, math.nan)
+    tpot = torch.where(
+        compm & (out_tok > 1),
+        (finish - first) / torch.clamp(out_tok - 1, min=1),
+        math.nan,
+    )
+    t_end = finish.amax(dim=1)
+    m = {
+        "completed": compm.sum(dim=1),
+        "rejected": out["rej"].sum(dim=1),
+        "truncated": out["reci"][..., 2].sum(dim=1),
+        "routed": torch.stack([(out["pool"] == p).sum(dim=1) for p in range(P)], dim=1),
+        "ttft_mean": ttft.nanmean(dim=1),
+        "ttft_p50": torch.nanquantile(ttft, 0.5, dim=1),
+        "ttft_p99": torch.nanquantile(ttft, 0.99, dim=1),
+        "tpot_mean": tpot.nanmean(dim=1),
+        "tpot_p99": torch.nanquantile(tpot, 0.99, dim=1),
+        "t_end": t_end,
+        "makespan": t_end - arr.min(),
+    }
+    return {k: v.cpu().numpy() for k, v in m.items()}
+
+
+def run_fleet_grid(
+    trace,
+    pools: dict[str, tuple[PoolConfig, int]],
+    timing: TimingModel,
+    *,
+    thresholds: Optional[Sequence[Sequence[int]]] = None,
+    instances: Optional[Sequence[Sequence[int]]] = None,
+    gains: Optional[Sequence[Optional[dict]]] = None,
+    b_short: int = 8192,
+    calibrator: Optional[EmaCalibrator] = None,
+    epoch: int = 2048,
+    control_window: int = 512,
+    return_records: bool = False,
+    device: str | torch.device = "cuda",
+) -> FleetGridResult:
+    """Run a whole sensitivity sweep as one batched run on ``device``: the
+    lanes ride a leading axis of every tensor of the loop, and each round
+    is one ``sim_decode`` launch for all of them.
+
+    Grid axes (all optional, zip semantics — length G or 1, broadcast):
+
+    ``thresholds``
+        Sequence of boundary vectors (each length P−1, pool-budget order).
+    ``instances``
+        Sequence of per-pool instance-count vectors (length P). Lanes run
+        padded to the max count with dead-lane masking, so mixed fleet
+        sizes share one run.
+    ``gains``
+        Sequence of AIMD controller parameter dicts (keys ``b_min``,
+        ``increase_step``, ``decrease_factor``, ``error_rate_hi``,
+        ``overload_ratio_hi`` — defaults from
+        :mod:`repro_torch.core.adaptive`), or ``None`` entries for
+        uncontrolled lanes.
+
+    Budgets are precomputed once on the host — the EMA feedback trajectory
+    depends only on the observation stream, not on routing — so every lane
+    shares the same budget array. Each lane's records are bit-identical to
+    the reference's ``run_fleet_grid`` lane, and its loop counts equal the
+    reference's (:func:`last_run_stats`). ``device`` is ``"cuda"`` unless
+    the caller asks for the CPU; without a GPU the default raises.
+    """
+    dev = resolve_device(device)
+    cols = _as_columns(trace)
+    n = len(cols)
+    if n == 0:
+        raise ValueError("run_fleet_grid needs a non-empty trace")
+
+    # Budget-ordered pool frame, like FleetSim.
+    ordered = sorted(pools.items(), key=lambda kv: kv[1][0].c_max)
+    names = tuple(name for name, _ in ordered)
+    base_inst = [int(ni) for _, (_, ni) in ordered]
+    configs = [cfg for _, (cfg, _) in ordered]
+    P = len(ordered)
+
+    if thresholds is None:
+        if set(names) == {"short", "long"}:
+            base_th = [min(b_short, configs[0].c_max)]
+        else:
+            base_th = [c.c_max for c in configs[:-1]]
+        thresholds = [base_th]
+    if instances is None:
+        instances = [base_inst]
+    if gains is None:
+        gains = [None]
+
+    g = max(len(thresholds), len(instances), len(gains))
+    thresholds = _broadcast_axis(list(thresholds), g, "thresholds")
+    instances = _broadcast_axis(list(instances), g, "instances")
+    gains = _broadcast_axis(list(gains), g, "gains")
+
+    th_arr = np.asarray(thresholds, np.int32).reshape(g, P - 1)
+    inst_arr = np.asarray(instances, np.int32).reshape(g, P)
+    any_ctrl = any(gn is not None for gn in gains)
+    ctrl_rows = [
+        {
+            "enabled": np.int32(0 if gn is None else 1),
+            "b_min": np.int32((gn or {}).get("b_min", 512)),
+            "step": np.int32((gn or {}).get("increase_step", DEFAULT_INCREASE_STEP)),
+            "factor": np.float32((gn or {}).get("decrease_factor", DEFAULT_DECREASE_FACTOR)),
+            "err_hi": np.float32((gn or {}).get("error_rate_hi", DEFAULT_ERROR_RATE_HI)),
+            "over_hi": np.float32(
+                (gn or {}).get("overload_ratio_hi", DEFAULT_OVERLOAD_RATIO_HI)
+            ),
+        }
+        for gn in gains
+    ]
+    ctrl = {k: np.stack([r[k] for r in ctrl_rows]) for k in ctrl_rows[0]}
+
+    spec = _SimSpec(
+        pools=tuple(
+            _pool_spec(name, cfg, int(inst_arr[:, j].max()))
+            for j, (name, cfg) in enumerate(zip(names, configs))
+        ),
+        w=float(timing.w_base),
+        h=float(timing.h_per_seq),
+        prefill_chunk=int(timing.prefill_chunk),
+        win_size=int(control_window) if any_ctrl else 0,
+    )
+
+    budgets = None
+    if P > 1:
+        cal = calibrator or EmaCalibrator()
+        epoch_cap = max(1, min(epoch, control_window)) if any_ctrl else epoch
+        budgets, _ = precompute_budget_trajectory(cols, cal, epoch_cap=epoch_cap)
+
+    trace_arrays = {
+        "arr": np.asarray(cols.arrival_time, np.float64),
+        "inp": np.asarray(cols.true_input_tokens, np.int32),
+        "outp": np.asarray(cols.true_output_tokens, np.int32),
+        "budget": np.zeros(n, np.int32) if budgets is None else budgets,
+    }
+    lanes = {"th": th_arr, "ninst": inst_arr, "ctrl": ctrl}
+    loop = _FleetLoop(spec, trace_arrays, lanes, dev, grid=True)
+    out = loop.run()
+    _LAST_RUN.clear()
+    _LAST_RUN.update(
+        mode="grid",
+        n=n,
+        g=g,
+        iters=int(loop.iters.max()),
+        rounds=int(loop.rounds.max()),
+        iters_total=int(loop.iters.sum()),
+        rounds_total=int(loop.rounds.sum()),
+        host_syncs=loop.host_syncs,
+        device=str(dev),
+    )
+
+    m = _grid_metrics(out, loop.arr, P)
+    records = None
+    if return_records:
+        rf = out["recf"].cpu().numpy()
+        ri = out["reci"].cpu().numpy()
+        records = {
+            "first": rf[..., 0],
+            "finish": rf[..., 1],
+            "out": ri[..., 0],
+            "pre": ri[..., 1],
+            "trunc": ri[..., 2].astype(bool),
+            "pool": out["pool"].cpu().numpy(),
+            "rejt": out["rejt"].cpu().numpy(),
+            "rej": out["rej"].cpu().numpy(),
+        }
+    return FleetGridResult(
+        pool_names=names,
+        thresholds=th_arr,
+        instances=inst_arr,
+        completed=m["completed"].astype(np.int64),
+        rejected=m["rejected"].astype(np.int64),
+        truncated=m["truncated"].astype(np.int64),
+        preemptions=out["preempt"].sum(axis=1).astype(np.int64),
+        routed=m["routed"].astype(np.int64),
+        ttft_mean=m["ttft_mean"],
+        ttft_p50=m["ttft_p50"],
+        ttft_p99=m["ttft_p99"],
+        tpot_mean=m["tpot_mean"],
+        tpot_p99=m["tpot_p99"],
+        makespan=m["makespan"],
+        final_thresholds=out["th"].reshape(g, P - 1),
+        controller_moves=out["moves"].astype(np.int64),
+        records=records,
+    )

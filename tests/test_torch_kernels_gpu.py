@@ -336,23 +336,33 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 SIM_DECODE_ARGS = ("t_limit", "busy", "now", "nact", "free", "occ", "pre", "sq", "inp",
                    "gen", "rem", "blk", "ft", "tr", "c_max")
 SIM_DECODE_CASES = [
-    # (c_max per pool, instances, slots, t_limit, timing (w, h), offset):
-    # with ``offset`` every operand is ``t[1:]`` of a tensor with one pool
-    # more, a contiguous view whose storage offset (I * S elements, odd) is
-    # not 16-byte aligned
-    ([8192, 65_536], 224, 128, None, (8.0e-3, 0.65e-3), False),  # Table-2 fleet shapes
-    ([8192, 65_536], 224, 128, math.inf, (8.0e-3, 0.65e-3), False),
-    ([1024, 2048, 4096], 6, 16, None, (2**-10, 2**-13), False),
-    ([2048], 5, 200, None, (8.0e-3, 0.65e-3), False),  # more slots than a warp holds
-    ([4096], 3, 8, math.inf, (2**-10, 2**-13), False),
+    # (c_max per pool, lanes, instances, slots, t_limit, timing (w, h),
+    # offset, idle lane): with ``offset`` every operand is ``t[1:]`` of a
+    # tensor with one lane more, a contiguous view whose storage offset
+    # (P * I * S elements) is not 16-byte aligned; ``t_limit`` is one value
+    # for every lane, a list of one a lane, or None for a different
+    # default in each lane; an idle lane has no busy row
+    ([8192, 65_536], 1, 224, 128, None, (8.0e-3, 0.65e-3), False, None),  # Table-2 fleet shapes
+    ([8192, 65_536], 1, 224, 128, math.inf, (8.0e-3, 0.65e-3), False, None),
+    ([1024, 2048, 4096], 1, 6, 16, None, (2**-10, 2**-13), False, None),
+    ([2048], 1, 5, 200, None, (8.0e-3, 0.65e-3), False, None),  # more slots than a warp holds
+    ([4096], 1, 3, 8, math.inf, (2**-10, 2**-13), False, None),
     # S = 1, 6 (a vector-less tail), 33 and 129 (past one warp's 128);
     # 7 and 9 rows, which 4 rows a CTA do not divide
-    ([8192, 65_536], 7, 1, None, (8.0e-3, 0.65e-3), False),
-    ([2048, 4096], 5, 6, None, (2**-10, 2**-13), False),
-    ([1024, 2048, 4096], 3, 33, None, (8.0e-3, 0.65e-3), False),
-    ([2048], 9, 129, math.inf, (8.0e-3, 0.65e-3), False),
-    ([8192, 65_536], 13, 17, None, (8.0e-3, 0.65e-3), True),
-    ([4096], 3, 33, None, (2**-10, 2**-13), True),
+    ([8192, 65_536], 1, 7, 1, None, (8.0e-3, 0.65e-3), False, None),
+    ([2048, 4096], 1, 5, 6, None, (2**-10, 2**-13), False, None),
+    ([1024, 2048, 4096], 1, 3, 33, None, (8.0e-3, 0.65e-3), False, None),
+    ([2048], 1, 9, 129, math.inf, (8.0e-3, 0.65e-3), False, None),
+    ([8192, 65_536], 1, 13, 17, None, (8.0e-3, 0.65e-3), True, None),
+    ([4096], 1, 3, 33, None, (2**-10, 2**-13), True, None),
+    # grid lanes: G = 3 and 16, each lane its own time limit, one at +inf,
+    # one lane idle; the 16-lane Table-2 shape of the grid's sweep
+    ([8192, 65_536], 16, 224, 128, [1.5 + 0.1 * g for g in range(15)] + [math.inf],
+     (8.0e-3, 0.65e-3), False, 3),
+    ([2048, 4096], 3, 5, 1, [2.0, math.inf, 1.2], (8.0e-3, 0.65e-3), False, 0),
+    ([1024, 2048, 4096], 3, 3, 33, None, (2**-10, 2**-13), False, 2),
+    ([2048], 16, 9, 129, None, (8.0e-3, 0.65e-3), False, 15),
+    ([1024, 4096], 3, 7, 33, [math.inf, 1.0, 2.2], (8.0e-3, 0.65e-3), True, 1),
 ]
 
 
@@ -360,14 +370,19 @@ SIM_DECODE_CASES = [
 def test_sim_decode_kernel_bit_identical_to_plain(cuda, case):
     """Every output equal bit for bit (float64 compared as bits, so NaN
     first-token times count)."""
-    c_max, n_inst, n_slots, t_limit, (w, h), offset = case
+    c_max, lanes, n_inst, n_slots, t_limit, (w, h), offset, idle = case
     if offset:
-        st = random_state(11, c_max[:1] + c_max, n_inst, n_slots, t_limit=t_limit, device=cuda)
-        st = {k: v if k == "t_limit" else v[1:] for k, v in st.items()}
-        assert (n_inst * n_slots) % 2 == 1 and st["pre"].is_contiguous()
+        tl = [0.0] + t_limit if isinstance(t_limit, list) else t_limit
+        st = random_state(11, c_max, n_inst, n_slots, t_limit=tl, lanes=lanes + 1, device=cuda)
+        st = {k: v if k == "c_max" else v[1:] for k, v in st.items()}
+        assert st["pre"].is_contiguous()
         assert st["pre"].data_ptr() % 16 != 0 and st["occ"].data_ptr() % 4 != 0
     else:
-        st = random_state(11, c_max, n_inst, n_slots, t_limit=t_limit, device=cuda)
+        st = random_state(11, c_max, n_inst, n_slots, t_limit=t_limit, lanes=lanes, device=cuda)
+    if idle is not None:
+        st["busy"][idle] = False
+        st["now"][idle] = 0.0
+    assert st["occ"].shape == (lanes, len(c_max), n_inst, n_slots)
     args = [st[k] for k in SIM_DECODE_ARGS]
     before = decode_advance.launches
     got = decode_advance(*args, w=w, h=h, chunk=512)
@@ -380,10 +395,12 @@ def test_sim_decode_kernel_bit_identical_to_plain(cuda, case):
         if a.dtype == torch.float64:
             a, b = a.view(torch.int64), b.view(torch.int64)
         assert torch.equal(a, b), k
+    if idle is not None:
+        assert not want["comp"][idle].any() and not want["trunc_new"][idle].any()
 
 
 def test_sim_decode_refuses_what_it_does_not_take(cuda):
-    st = random_state(3, [2048], 2, 8, device=cuda)
+    st = random_state(3, [2048], 2, 8, lanes=2, device=cuda)
     args = [st[k] for k in SIM_DECODE_ARGS]
     kw = dict(w=2**-10, h=2**-13, chunk=512)
     bad = list(args)
@@ -398,6 +415,13 @@ def test_sim_decode_refuses_what_it_does_not_take(cuda):
     bad[-1] = torch.tensor([2048, 4096], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="pools"):
         decode_advance(*bad, **kw)
+    bad = list(args)
+    bad[0] = args[0][:1]  # one time limit for two lanes
+    with pytest.raises(TypeError, match="one time limit a lane"):
+        decode_advance(*bad, **kw)
+    one = [a if i == len(args) - 1 else a[0] for i, a in enumerate(args)]  # no lane axis
+    with pytest.raises(ValueError, match=r"\(G, P, I, S\)"):
+        decode_advance(*one, **kw)
 
 
 def _des_case(name):
@@ -462,3 +486,29 @@ def test_torch_tier_on_the_card_equals_the_cpu(cuda, case):
         for col in a:
             assert a[col].dtype == b[col].dtype, col
             assert a[col].tobytes() == b[col].tobytes(), (name, col)
+
+
+def test_grid_on_the_card_equals_the_cpu(cuda):
+    """``run_fleet_grid`` over three threshold lanes and two instance
+    vectors: the card's run launches the kernel once a round for all lanes
+    and gives the CPU run's records, metrics and loop counts."""
+    import numpy as np
+
+    from repro_torch.sim import A100_LLAMA3_70B, run_fleet_grid, torch_engine
+
+    pools, _, trace, _ = _des_case("routed")
+    kw = dict(thresholds=[[2048], [4096], [8192]], instances=[[6, 12], [3, 12], [6, 8]],
+              return_records=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = decode_advance.launches
+        grid = run_fleet_grid(trace, pools, A100_LLAMA3_70B, device=dev, **kw)
+        runs[dev] = (grid, torch_engine.last_run_stats(), decode_advance.launches - before)
+    (gg, gst, gl), (cg, cst, cl) = runs["cuda"], runs["cpu"]
+    assert gl == gst["rounds"] and cl == 0
+    for key in ("iters", "rounds", "iters_total", "rounds_total", "host_syncs"):
+        assert gst[key] == cst[key], key
+    for k, v in cg.records.items():
+        assert gg.records[k].dtype == v.dtype and gg.records[k].tobytes() == v.tobytes(), k
+    for f in ("completed", "rejected", "truncated", "preemptions", "routed", "controller_moves"):
+        assert np.array_equal(getattr(gg, f), getattr(cg, f)), f

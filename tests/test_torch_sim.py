@@ -12,7 +12,8 @@ equal, and the Table-2 fleet plan and cost model against the reference's.
 Mirrors ``TestExactEquivalence``, ``TestJaxBackendEquivalence``,
 ``TestCoalescedJumpEquivalence``, ``TestJaxRoutedTolerance`` and
 ``TestControllerInTheLoop`` of ``tests/test_vector_engine.py``, at the same
-traces except where a smaller n keeps this file near a minute.
+traces except where a smaller n keeps this file near two minutes, and adds
+the three-pool topology and a ``TraceColumns``-fed fleet on the torch tier.
 """
 
 import dataclasses
@@ -262,6 +263,67 @@ class TestTorchTierRouted:
     def test_every_request_accounted(self, results):
         for key in ("torch", "vectorized"):
             assert sum(results[key][1].router_stats["routed"].values()) == self.N, key
+
+
+def three_pool_topology(pkg, core, trace, rate):
+    """``tests/test_vector_engine.py``'s 4K / 16K / 64K pools, each sized by
+    ``profile_pool`` for the requests whose true total falls in its band."""
+    cfgs = (
+        core.PoolConfig("p4k", 4096, core.n_seq_for_cmax(4096), headroom=1.05),
+        core.PoolConfig("p16k", 16_384, core.n_seq_for_cmax(16_384), headroom=1.05),
+        core.PoolConfig("p64k", 65_536, 16, headroom=1.02),
+    )
+    thresholds = [4096, 16_384]
+    group = np.searchsorted(thresholds, [r.true_total for r in trace])
+    pools = {}
+    for k, cfg in enumerate(cfgs):
+        members = [r for r, g in zip(trace, group) if g == k]
+        prof = pkg.profile_pool(cfg.name, trace, members, cfg, pkg.A100_LLAMA3_70B, rate)
+        pools[cfg.name] = (cfg, max(1, prof.instances))
+    return pools, thresholds
+
+
+class TestTorchTierMoreFleets:
+    """Two routed fleets beyond ``TestTorchTierRouted``'s, each held bit for
+    bit against the jax tier with equal iters and rounds: the three-pool
+    4K / 16K / 64K topology (Azure, n = 1,500), and the two-pool Table-2
+    fleet fed a ``TraceColumns`` trace instead of ``Request`` objects."""
+
+    N, RATE = 1500, 400.0
+
+    @pytest.fixture(scope="class", params=["three_pool", "columnar"])
+    def runs(self, request):
+        out = {"case": request.param}
+        for name, pkg, core, traces, engine in (
+            ("jax", R, Rcore, Rtraces, jax_engine), ("torch", T, Tcore, Ttraces, torch_engine)
+        ):
+            kw = {"device": "cpu"} if name == "torch" else {}
+            spec = traces.TraceSpec(trace="azure", num_requests=self.N, rate=self.RATE, seed=42)
+            if request.param == "three_pool":
+                trace = traces.generate_trace(spec)
+                pools, thresholds = three_pool_topology(pkg, core, trace, self.RATE)
+                sim = pkg.FleetSim(pools, pkg.A100_LLAMA3_70B, thresholds=thresholds,
+                                   backend=name, spillover=False, **kw)
+            else:
+                trace = traces.generate_trace_columns(spec)
+                sim = pkg.FleetSim(two_pool_fleet(core, pkg, trace.to_requests(), self.RATE),
+                                   pkg.A100_LLAMA3_70B, backend=name, spillover=False, **kw)
+            out[name] = (sim, sim.run(trace), engine.last_run_stats())
+        return out
+
+    def test_records_and_counts_equal_the_jax_tier(self, runs):
+        (js, jr, jst), (ts, tr, tst) = runs["jax"], runs["torch"]
+        assert record_tuples(tr, ts) == record_tuples(jr, js)
+        assert (tst["iters"], tst["rounds"]) == (jst["iters"], jst["rounds"])
+        assert 0 < tst["iters"] <= self.N + 1
+        assert tr.router_stats["routed"] == jr.router_stats["routed"]
+        for f in SUMMARY_FIELDS:
+            assert getattr(tr.summary, f) == getattr(jr.summary, f), f
+
+    def test_every_pool_takes_requests(self, runs):
+        routed = runs["torch"][1].router_stats["routed"]
+        assert len(routed) == (3 if runs["case"] == "three_pool" else 2)
+        assert all(v > 0 for v in routed.values()) and sum(routed.values()) == self.N
 
 
 @pytest.mark.parametrize("spillover", [True, False])

@@ -130,3 +130,45 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     out = decode_advance(state["t_limit"], *(state[k] for k in ARGS), state["c_max"], **A100)
     assert decode_advance.launches == before  # no kernel launch on the CPU
     assert_bit_identical({k: v.numpy() for k, v in out.items()}, plain(state, A100))
+
+
+def reference_lanes(state, timing, fn):
+    """A reference function ``jax.vmap``-ed over the grid lanes, as the
+    reference's ``run_fleet_grid`` runs it (one time limit a lane), pool by
+    pool (its c_max is per call); outputs stacked to ``(G, P, ...)``."""
+    t_lim = state["t_limit"].numpy()
+    outs = []
+    with jax.experimental.enable_x64():
+        for p, cm in enumerate(state["c_max"].tolist()):
+            args = [state[k][:, p].numpy() for k in ARGS]
+            lanes = jax.vmap(functools.partial(fn, c_max=cm, **timing))
+            out = lanes(t_lim, *args)
+            outs.append({k: np.asarray(v) for k, v in out.items()})
+    return {k: np.stack([o[k] for o in outs], axis=1) for k in outs[0]}
+
+
+@pytest.mark.parametrize("t_limit", [None, [1.9, float("inf"), 2.6]])
+@pytest.mark.parametrize("seed", [8, 9])
+def test_lanes_match_vmapped_reference(seed, t_limit):
+    """(G, P, I, S) = (3, 2, 3, 5) with a different time limit in each lane
+    (one lane at +inf in the second case): bit-identical to ``jax.vmap`` of
+    the Pallas kernel in interpret mode and of the jnp oracle."""
+    state = random_state(seed, [1024, 4096], 3, 5, t_limit=t_limit, lanes=3)
+    assert state["occ"].shape == (3, 2, 3, 5) and state["t_limit"].shape == (3,)
+    assert len(set(state["t_limit"].tolist())) == 3
+    got = plain(state, DYADIC)
+    assert (got["k"] == 1).any() and (got["k"] > 1).any()
+    assert_bit_identical(got, reference_lanes(state, DYADIC, decode_advance_jnp))
+    assert_bit_identical(got, reference_lanes(state, DYADIC, decode_advance_pallas))
+
+
+def test_lanes_are_independent():
+    """Each lane of a (G, P, I, S) call is the one-lane call on that lane's
+    slots and time limit."""
+    state = random_state(10, [2048, 8192], 4, 6, lanes=3)
+    got = plain(state, A100)
+    for g in range(3):
+        lane = {k: (v if k == "c_max" else v[g]) for k, v in state.items()}
+        one = plain(lane, A100)
+        for k in OUTPUTS:
+            assert np.array_equal(got[k][g], one[k], equal_nan=True), (g, k)
