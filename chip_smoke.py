@@ -33,6 +33,18 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 5. the same on full-width zamba2-2.7b (54 Mamba-2 blocks, 2 shared
    attention blocks applied 9 times; random bf16 weights from seed 0): the
    SSD scan, flash and paged kernels must each run;
+5b. the MoE family at full width, depth cut (``MOE_LAYERS``; the cut and
+   the weights' bytes printed): qwen3-235b-a22b (4 of 94 layers, 128
+   experts top-8, GQA group 16) serves the same 16-request draw through the
+   two pools at the default ``moe_group`` (``[serve-moe]``, flash and paged
+   must run), is profiled as above with the host syncs inside one decode
+   step counted, which must be 0 (``[profile-moe]``), and its decode-step
+   logits are held against a forward at ``moe_group=1``
+   (``[logits-moe]``); llama4-scout (2 of 48 layers, 16 experts top-1 and
+   a shared one, GQA group 5) prefills 8 slots and decodes ``SCOUT_STEPS``
+   steps, each slot's logits held against a forward (``[moe-scout]``). The
+   kernel phase (2) adds flash and paged at both head layouts (paged at
+   qwen3's on both pools, scout's on the short pool it decodes in);
 6. the fleet DES (``FleetSim(backend="torch", device="cuda")``) on the
    paper's Table-2 fleet: an Azure trace at 1,000 req/s (seed 0),
    B_short 8192, the A100/Llama-3-70B timing model, short pool c_max 8192
@@ -66,7 +78,9 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    of their own (``[prior]``, copied from PERF.md, not measured here), the
    kernels' JSON line (each entry carries the timing floor; flash and paged
    entries their variant or split count, the SSD scan its P split and CTA
-   count), the card's name and power limit, and last
+   count; flash and paged also at the MoE family's head layouts, ``_g16``
+   on the qwen3 serve's path, ``_g5`` on the scout run's), the card's name
+   and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero and prints no result;
@@ -75,6 +89,7 @@ so does a machine without a GPU, and a directory without the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -82,6 +97,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -158,6 +174,14 @@ INT8_LOGITS_REL_TOL = 1e-1
 SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
 
 DENSE, HYBRID = "yi-6b", "zamba2-2.7b"
+#: The MoE family's configs on the card and the layers each keeps of its
+#: published depth (full widths; ``dataclasses.replace(cfg, n_layers=...)``):
+#: qwen3-235b-a22b's 4 of 94 take ~22.4 GB in bf16 and serve through the
+#: two pools; llama4-scout's 2 of 48, ~12.9 GB, decode 8 slots.
+MOE, SCOUT = "qwen3-235b-a22b", "llama4-scout-17b-a16e"
+MOE_LAYERS = {MOE: 4, SCOUT: 2}
+#: Decode steps of the scout run (after the 8 slots' prefills).
+SCOUT_STEPS = 16
 SERVE = dict(
     requests=16, short_cmax=512, long_cmax=2048,
     short_slots=8, long_slots=2, seed=0, full_width=True,
@@ -167,8 +191,13 @@ COUNTERS = {"flash_attention": flash_attention, "paged_attention": paged_attenti
             "ssd_scan": ssd_scan}
 #: Kernels per decode step (8 busy slots) that the profiled steps may not
 #: exceed: the counts the served paths had before the attention kernels
-#: were redesigned (the split combines inside the paged launch).
-MAX_KERNELS_PER_STEP = {"profile": 1665, "profile-int8": 2081, "profile-hybrid": 3910}
+#: were redesigned (the split combines inside the paged launch); the MoE
+#: path's is its first reading on the card (qwen3-235b-a22b, 4 layers).
+MAX_KERNELS_PER_STEP = {"profile": 1665, "profile-int8": 2081, "profile-hybrid": 3910,
+                        "profile-moe": 426}
+#: Profiles whose decode step must make no host sync (the MoE routing reads
+#: no per-expert count on the host).
+SYNC_FREE_PROFILES = ("profile-moe",)
 #: The earlier design's device times (ms) at the JSON line's shapes, read
 #: on the same card model (NVIDIA H100 80GB HBM3, 700 W; PERF.md's table);
 #: printed on their own line, never in the kernels' JSON line.
@@ -559,15 +588,46 @@ def profile_decode(srv, tag: str, steps: int = 10) -> dict:
         top=[(e.key[:60], e.count // steps, e.self_device_time_total / 1e3 / steps) for e in top],
     )
     out["kernels_per_step"] = sum(e.count for e in kernels) / steps
+    out["host_syncs"] = decode_syncs(eng)
     print(f"[{tag}] short pool, 8 busy slots: {out['step_ms']:.3f} ms per decode step, "
           f"device busy {100 * out['busy_share']:.1f}% of the wall, "
-          f"{out['kernels_per_step']:.1f} kernels per step (at most {MAX_KERNELS_PER_STEP[tag]})")
+          f"{out['kernels_per_step']:.1f} kernels per step (at most {MAX_KERNELS_PER_STEP[tag]}), "
+          f"{out['host_syncs']} host syncs inside the model's decode step")
     for key, n, ms in out["top"]:
         print(f"[{tag}]   {ms:8.4f} ms/step  {n:4d}/step  {key}")
     if out["kernels_per_step"] > MAX_KERNELS_PER_STEP[tag]:
         fail(f"{tag}: {out['kernels_per_step']:.1f} kernels per decode step, more than "
              f"{MAX_KERNELS_PER_STEP[tag]}")
+    if tag in SYNC_FREE_PROFILES and out["host_syncs"]:
+        fail(f"{tag}: {out['host_syncs']} host syncs inside one decode step")
     return out
+
+
+def decode_syncs(eng) -> int:
+    """Host syncs inside one call of the model's decode step on ``eng``'s
+    slots, as torch's sync debug mode reports them (the engine's own read
+    of the sampled tokens, and its copy of the token and index buffers to
+    the card, are outside the call). The first call of a process reads one
+    sync inside torch's own ``torch/cuda/__init__.py`` that a second call
+    does not, so the step is run twice and the second call counted. Each
+    call rewrites each slot's K/V at the position the engine writes next."""
+    batch = {"tokens": torch.from_numpy(eng._token_buf[:, None]).to(eng.device),
+             "index": torch.from_numpy(eng._index_buf).to(eng.device)}
+    counts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.model.decode_step(eng.params, eng.cache.state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts.append([f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                       if "synchroniz" in str(w.message)])
+    print(f"[syncs] host syncs inside the decode step, first and second call: {counts}")
+    return len(counts[1])
 
 
 def decode_vs_forward(model, params) -> dict:
@@ -594,23 +654,35 @@ def decode_vs_forward(model, params) -> dict:
     )
 
 
-def logits_check(srv, tag: str) -> float:
+def temper_attention(params: dict) -> None:
+    """Scales every ``w_q`` and ``w_k`` in the tree by 0.1, in place (the
+    dense layers, the MoE family's dense and MoE blocks, the hybrid's shared
+    attention blocks)."""
+    for key, val in params.items():
+        if isinstance(val, dict):
+            temper_attention(val)
+        elif key in ("w_q", "w_k"):
+            val.mul_(0.1)
+
+
+def logits_check(srv, tag: str, model=None) -> float:
     """Decode-step logits against a full forward recompute, full width.
 
     With the reference's init (q/k projections scaled by the head count, so
     attention scores have a std near 100 at yi-6b widths and softmax is an
     arg-max) the two paths' different bf16 roundings pick different keys
     and the logits decorrelate; that reading is printed, not held. The held
-    reading scales w_q and w_k by 0.1 (in place, after serving; the dense
-    model's layers, the hybrid's shared attention blocks), which leaves the
-    attention soft, so the paths differ by bf16 rounding only.
+    reading scales w_q and w_k by 0.1 (in place, after serving), which
+    leaves the attention soft, so the paths differ by bf16 rounding only.
+    ``model`` (the served one if None) runs both paths: the MoE family's at
+    ``moe_group=1``, where prefill and forward route each token alone as
+    decode does, so no capacity drop tells the paths apart.
     """
-    model, params = srv.short_engine.model, srv.short_engine.params
+    params = srv.short_engine.params
+    model = model or srv.short_engine.model
     raw = decode_vs_forward(model, params)
     print(f"[{tag}] reference init (not held): {raw}")
-    attn = params["shared"] if "shared" in params else params["blocks"]
-    for name in ("w_q", "w_k"):
-        attn[name].mul_(0.1)
+    temper_attention(params)
     r = decode_vs_forward(model, params)
     print(f"[{tag}] w_q, w_k x0.1: decode step vs forward rel L2 {r['rel_l2']:.4g} "
           f"(tol {LOGITS_REL_TOL}), max |diff| {r['max_abs_diff']:.4g} of max |logit| "
@@ -633,6 +705,82 @@ def logits_int8_check(srv) -> float:
         fail(f"int8 decode logits differ from the bf16 forward: rel L2 {r['rel_l2']} > "
              f"{INT8_LOGITS_REL_TOL}")
     return r["rel_l2"]
+
+
+def moe_model(arch: str, tag: str, **kw) -> Model:
+    """``Model(cfg, **kw)`` of a MoE config at its published widths with its
+    depth cut to ``MOE_LAYERS``; prints the cut and the weights' bytes."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS[arch])
+    model = Model(cfg, **kw)
+    print(f"[{tag}] {arch}: n_layers cut {full.n_layers} -> {cfg.n_layers} (widths as "
+          f"published: d_model {cfg.d_model}, H {cfg.n_heads} K {cfg.n_kv_heads} D "
+          f"{cfg.head_dim}, {cfg.n_experts} experts of {cfg.moe_d_ff} top-{cfg.top_k}, "
+          f"{cfg.n_shared_experts} shared, padded vocab {cfg.padded_vocab}); "
+          f"{model.param_bytes() / 1e9:.2f} GB of bf16 weights, "
+          f"{model.active_param_count() / 1e9:.3f} B of {model.param_count() / 1e9:.3f} B "
+          f"parameters active a token", flush=True)
+    return model
+
+
+def serve_moe_phase(dev) -> dict:
+    """qwen3-235b-a22b at full width, its depth cut, through the two pools
+    on the 16-request draw, greedy, at the default ``moe_group``."""
+    model = moe_model(MOE, "serve-moe")
+    params = model.init(0, device=dev)
+    srv = TwoPoolServer(model, params, short_cmax=SERVE["short_cmax"],
+                        long_cmax=SERVE["long_cmax"], short_slots=SERVE["short_slots"],
+                        long_slots=SERVE["long_slots"])
+    reset_counters()
+    result = run_workload(srv, requests=SERVE["requests"], seed=SERVE["seed"])
+    return check_served(result, MOE, ("flash_attention", "paged_attention"), "serve-moe")
+
+
+def scout_phase(dev) -> dict:
+    """llama4-scout at full width, its depth cut, w_q/w_k tempered as
+    ``logits_check`` does: 8 slots' prefills (prompts of 100 to 240 tokens)
+    and ``SCOUT_STEPS`` decode steps, the launch counters set to 0 just
+    before and read just after (flash and paged must run), then each slot's
+    last decode-step logits against a forward over its context, the model at
+    ``moe_group=1`` throughout."""
+    model = moe_model(SCOUT, "moe-scout", moe_group=1)
+    cfg = model.cfg
+    params = model.init(0, device=dev)
+    temper_attention(params)
+    slots = SERVE["short_slots"]
+    eng = ServingEngine(model, params, c_max=SERVE["short_cmax"], n_slots=slots)
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, 100 + 20 * i)] for i in range(slots)]
+    for i, prompt in enumerate(prompts):
+        eng.submit(ServeRequest(i, prompt, max_new_tokens=SCOUT_STEPS + 2))  # all stay busy
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SCOUT_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: COUNTERS[name].launches for name in ("flash_attention", "paged_attention")}
+    launches["flash_attention_tc"] = flash_attention.launches_tc
+    print(f"[moe-scout] {slots} prefills and {eng.iterations} decode steps of {slots} slots in "
+          f"{wall:.3f} s; kernel launches: {launches}", flush=True)
+    if eng.iterations != SCOUT_STEPS or any(n == 0 for n in launches.values()):
+        fail(f"moe-scout: {eng.iterations} decode steps, launches {launches}")
+    worst = 0.0
+    for slot, st in sorted(eng.slots.items()):
+        ctx = st.request.tokens + st.generated[:-1]
+        ref, _ = model.forward(params, {"tokens": torch.tensor([ctx], device=dev)})
+        got, ref = eng.last_logits[slot].float(), ref[0, -1].float()
+        if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+            fail(f"moe-scout: slot {slot}: non-finite logits")
+        rel = ((got - ref).norm() / ref.norm()).item()
+        worst = max(worst, rel)
+        print(f"[moe-scout] slot {slot}: {len(ctx)} positions, decode step vs forward rel L2 "
+              f"{rel:.4g}, argmax {int(got.argmax())} / {int(ref.argmax())}")
+    print(f"[moe-scout] worst rel L2 {worst:.4g} (tol {LOGITS_REL_TOL})", flush=True)
+    if not worst <= LOGITS_REL_TOL:
+        fail(f"moe-scout: decode logits differ from forward: rel L2 {worst} > {LOGITS_REL_TOL}")
+    return dict(launches=launches, rel_l2=worst, wall_s=wall)
 
 
 # ---------------------------------------------------------------------------
@@ -1025,6 +1173,13 @@ def main() -> None:
     paged8 = paged_phase(dev, flush, heads=dense_heads, tag=f"{DENSE} int8", int8=True,
                          pools=POOLS + (LONG_POOL,))
     ssd_rows = ssd_phase(dev, flush)
+    moe_cfg, scout_cfg = get_config(MOE), get_config(SCOUT)
+    moe_heads = (moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim)
+    scout_heads = (scout_cfg.n_heads, scout_cfg.n_kv_heads, scout_cfg.head_dim)
+    flash_g16 = flash_phase(dev, flush, heads=moe_heads, lengths=(256, 1024), tag=MOE)
+    flash_g5 = flash_phase(dev, flush, heads=scout_heads, lengths=(256,), tag=SCOUT)
+    paged_g16 = paged_phase(dev, flush, heads=moe_heads, tag=MOE)
+    paged_g5 = paged_phase(dev, flush, heads=scout_heads, tag=SCOUT, pools=POOLS[:1])
     del flush
 
     served = serve_phase(DENSE, ("flash_attention", "paged_attention"), "serve")
@@ -1043,6 +1198,17 @@ def main() -> None:
     profile_decode(hybrid["server"], "profile-hybrid")
     logits_check(hybrid["server"], "logits-hybrid")
     del hybrid["server"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    moe = serve_moe_phase(dev)
+    profile_decode(moe["server"], "profile-moe")
+    cut = moe["server"].short_engine.model.cfg
+    logits_check(moe["server"], "logits-moe", model=Model(cut, moe_group=1))
+    del moe["server"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    scout = scout_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1090,9 +1256,26 @@ def main() -> None:
               f"run_fleet_grid, Table-2 fleet, {max(GRID['ladders'])} threshold lanes",
               grid["launches"], grid["kernel"], f"(G, P, I, S) = {grid['kernel']['shape']}"),
     ]
+    moe_path = f"serve {MOE} ({MOE_LAYERS[MOE]} of {get_config(MOE).n_layers} layers)"
+    scout_path = (f"decode {SCOUT} ({MOE_LAYERS[SCOUT]} of {get_config(SCOUT).n_layers} "
+                  f"layers), 8 slots")
+    kernels += [
+        entry("flash_attention_g16", flash_src, flash_rep, moe_path,
+              moe["launches"]["flash_attention"], flash_g16[256], "H=64 K=4 D=128 L=256"),
+        entry("paged_attention_g16", paged_src, paged_rep, moe_path,
+              moe["launches"]["paged_attention"], paged_g16["short"],
+              "8 slots x 512, H=64 K=4 D=128, bf16 pages"),
+        entry("flash_attention_g5", flash_src, flash_rep, scout_path,
+              scout["launches"]["flash_attention"], flash_g5[256], "H=40 K=8 D=128 L=256"),
+        entry("paged_attention_g5", paged_src, paged_rep, scout_path,
+              scout["launches"]["paged_attention"], paged_g5["short"],
+              "8 slots x 512, H=40 K=8 D=128, bf16 pages"),
+    ]
     kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
-    for k, row in zip(kernels[:6], (flash_rows[256], flash80[256], paged_rows["short"],
-                                    paged80["short"], paged8["short"], ssd_rows[256])):
+    for k, row in zip(kernels[:6] + kernels[8:],
+                      (flash_rows[256], flash80[256], paged_rows["short"], paged80["short"],
+                       paged8["short"], ssd_rows[256], flash_g16[256], paged_g16["short"],
+                       flash_g5[256], paged_g5["short"])):
         k.update({key: row[key] for key in ("variant", "splits", "p_split", "ctas") if key in row})
     print("[prior] the earlier design's ms at these shapes (PERF.md's table, not measured "
           "in this run): " + ", ".join(f"{k} {v}" for k, v in PRIOR_MS.items()))

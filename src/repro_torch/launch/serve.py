@@ -2,9 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --requests 40
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-235b-a22b --device cpu
 
 Builds a model (reduced widths unless ``--full-width``; the dense family,
-or the zamba2 hybrid), a short pool and a long pool, routes a synthetic
+the MoE family or the zamba2 hybrid), a short pool and a long pool, routes a synthetic
 workload through Algorithm 1 with live EMA calibration, and prints
 per-pool outcomes and router statistics. Runs on the GPU; ``--device cpu``
 runs the plain PyTorch versions of the kernels. Counterpart of
@@ -114,7 +115,11 @@ def run_workload(srv: TwoPoolServer, *, requests: int, seed: int = 0) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="yi-6b")
+    ap.add_argument("--arch", default="yi-6b",
+                    help="a config of the dense family (yi-6b, granite-3-8b, granite-34b, "
+                         "gemma-2b, llama3-70b), the MoE family (qwen3-235b-a22b, "
+                         "llama4-scout-17b-a16e, llama4-maverick-400b-a17b) or the hybrid "
+                         "(zamba2-2.7b)")
     ap.add_argument("--requests", type=int, default=40)
     ap.add_argument("--short-cmax", type=int, default=128)
     ap.add_argument("--long-cmax", type=int, default=512)

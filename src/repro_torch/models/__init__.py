@@ -1,6 +1,6 @@
-"""Model stack of the port (dense and hybrid families)."""
+"""Model stack of the port (dense, MoE and hybrid families)."""
 
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, get_model
 from repro_torch.models.params import ParamDef, init_params, params_from_numpy
 
-__all__ = ["Model", "ParamDef", "init_params", "params_from_numpy"]
+__all__ = ["Model", "get_model", "ParamDef", "init_params", "params_from_numpy"]

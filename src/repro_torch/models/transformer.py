@@ -1,16 +1,31 @@
-"""Attention-transformer assembly, dense family (counterpart of
+"""Attention-transformer assembly, dense and MoE families (counterpart of
 ``repro.models.transformer``).
 
-Covers the dense llama-style stack the reference shares with yi-6b,
-granite-3-8b, granite-34b, gemma-2b and llama3-70b: RMS norm, GQA
-self-attention with half-split RoPE, gated or plain MLP, and a bf16 KV
-cache or (``kv_dtype="int8"``) an int8 one with one f16 scale per
-(position, head). The layer stack is a Python loop over the stacked
-``blocks`` parameters (the reference ``lax.scan``s over them). MoE,
-cross-attention and M-RoPE are later slices.
+Covers the llama-style stack the reference shares with yi-6b,
+granite-3-8b, granite-34b, gemma-2b and llama3-70b (dense) and with
+qwen3-235b-a22b, llama4-scout and llama4-maverick (MoE, :mod:`moe`): RMS
+norm, GQA self-attention with half-split RoPE, a gated or plain MLP or an
+MoE layer, and a bf16 KV cache or (``kv_dtype="int8"``) an int8 one with
+one f16 scale per (position, head). The layer stack is a Python loop over
+the stacked ``blocks`` parameters (the reference ``lax.scan``s over them):
+``blocks`` is the dense layers' tree, or for MoE ``{"moe_block": …}``, with
+a ``"dense_block"`` beside it when ``moe_every == 2`` (maverick), each
+stacked over ``n_layers // moe_every`` steps; a step runs its dense block,
+then its MoE block. Cross-attention, M-RoPE and codebook heads (vlm,
+audio) are later slices (ROADMAP.md, A11).
 
-Decode updates the KV cache tensors in place (the reference returns new
-arrays); the caches it returns are the ones it was given.
+MoE groups: ``forward`` and ``prefill`` route ``moe_group`` tokens a group
+(capacity factors 1.25 and 2.0); ``decode_step`` routes each sequence's
+token as its own group (factor 4.0), as the reference's engine does by
+``vmap``ping a one-token decode over its slots, so a free slot's stale row
+never changes a busy slot's result.
+
+The KV cache is one layer-ordered ``(n_layers, B, S, K, D)`` pair for every
+family: for ``moe_every == 2``, layer 2i is step i's dense block and 2i + 1
+its MoE block (the reference keeps ``{"dense_block": (k, v), "moe_block":
+(k, v)}``, each over the steps). Decode updates the KV cache tensors in
+place (the reference returns new arrays); the caches it returns are the
+ones it was given.
 """
 
 from __future__ import annotations
@@ -28,6 +43,13 @@ from repro_torch.models.layers import (
     mlp,
     rms_norm,
     rope_angles,
+)
+from repro_torch.models.moe import (
+    DECODE_CAPACITY_FACTOR,
+    PREFILL_CAPACITY_FACTOR,
+    TRAIN_CAPACITY_FACTOR,
+    moe_layer,
+    moe_param_defs,
 )
 from repro_torch.models.params import ParamDef, stack_tree
 
@@ -62,9 +84,18 @@ def mlp_defs(cfg: ArchConfig) -> dict:
     return defs
 
 
-def check_dense(cfg: ArchConfig) -> None:
-    """Raise for what the dense path of this slice does not cover."""
-    if cfg.family != "dense" or cfg.is_moe or cfg.cross_attention:
+def moe_layer_defs(cfg: ArchConfig) -> dict:
+    return {
+        **attention_defs(cfg),
+        "mlp_norm": ParamDef((cfg.d_model,), ("embed",), init="zeros", dtype=torch.float32),
+        "moe": moe_param_defs(cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
+                              cfg.n_shared_experts, cfg.activation),
+    }
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for what the port's transformer does not cover yet."""
+    if cfg.family not in ("dense", "moe") or cfg.cross_attention:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             "(ROADMAP.md, queue A, item A11)"
@@ -79,12 +110,22 @@ def check_dense(cfg: ArchConfig) -> None:
 
 
 def transformer_defs(cfg: ArchConfig) -> dict:
-    """Full parameter tree for a dense attention architecture."""
-    check_dense(cfg)
+    """Full parameter tree for a dense or MoE attention architecture."""
+    check_supported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
+    dense = {**attention_defs(cfg), **mlp_defs(cfg)}
+    if cfg.is_moe:
+        if cfg.moe_every not in (1, 2):
+            raise ValueError("moe_every must be 1 or 2")
+        step = {"moe_block": moe_layer_defs(cfg)}
+        if cfg.moe_every == 2:
+            step["dense_block"] = dense
+        blocks = stack_tree(step, cfg.n_layers // cfg.moe_every)
+    else:
+        blocks = stack_tree(dense, cfg.n_layers)
     defs: dict[str, Any] = {
         "embed": ParamDef((v, d), ("vocab", "embed"), init="normal"),
-        "blocks": stack_tree({**attention_defs(cfg), **mlp_defs(cfg)}, cfg.n_layers),
+        "blocks": blocks,
         "final_norm": ParamDef((d,), ("embed",), init="zeros", dtype=torch.float32),
     }
     if not cfg.tie_embeddings:
@@ -104,7 +145,9 @@ def init_cache(
     """Zero slot caches: ``(k, v)``, each (n_layers, B, S, K, head_dim) in
     bf16 whatever the activations' dtype ``act_dtype`` (the reference
     derives its cache from the bf16 abstract parameters); for int8 ``(k, v,
-    k_scale, v_scale)``, the scales (n_layers, B, S, K, 1) f16."""
+    k_scale, v_scale)``, the scales (n_layers, B, S, K, 1) f16. The layer
+    axis is in layer order (dense and MoE blocks interleaved for
+    ``moe_every == 2``)."""
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
     if kv_dtype == "int8":
         scale = (*shape[:-1], 1)
@@ -126,11 +169,26 @@ def cache_batch_axes(kv_dtype: str = "bf16") -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def _layers(params: dict) -> list[dict]:
-    """Per-layer views of the stacked ``blocks`` parameters."""
-    per_key = {k: t.unbind(0) for k, t in params["blocks"].items()}
-    n = len(next(iter(per_key.values())))
-    return [{k: views[i] for k, views in per_key.items()} for i in range(n)]
+def _unbind(tree):
+    """Per-step views of a tree of tensors stacked on axis 0."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(t) for k, t in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: views[i] for k, views in per_key.items()} for i in range(n)]
+    return tree.unbind(0)
+
+
+def _layers(params: dict) -> list[tuple[dict, bool]]:
+    """Per-layer views of the stacked ``blocks`` parameters in layer order,
+    each with whether it is an MoE layer."""
+    blocks = params["blocks"]
+    if "moe_block" not in blocks:
+        return [(p, False) for p in _unbind(blocks)]
+    moe = [(p, True) for p in _unbind(blocks["moe_block"])]
+    if "dense_block" not in blocks:
+        return moe
+    dense = [(p, False) for p in _unbind(blocks["dense_block"])]
+    return [layer for step in zip(dense, moe) for layer in step]
 
 
 def _project_qkv(x: torch.Tensor, p: dict):
@@ -195,8 +253,15 @@ def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, cache, rows, write, 
     return x + _out_proj(o, p)
 
 
-def _mlp_sublayer(x, p, cfg: ArchConfig):
-    return x + mlp(rms_norm(x, p["mlp_norm"], cfg.norm_eps), p, cfg.activation)
+def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool, group: int, capacity_factor: float):
+    """The MLP or MoE sublayer → (x, aux loss or None)."""
+    xn = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
+    if not is_moe:
+        return x + mlp(xn, p, cfg.activation), None
+    out, aux = moe_layer(xn, p["moe"], n_experts=cfg.n_experts, top_k=cfg.top_k,
+                         activation=cfg.activation, group_size=group,
+                         capacity_factor=capacity_factor)
+    return x + out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -218,35 +283,43 @@ def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return heads_lib.lm_logits(x, params["lm_head"], valid_vocab=vv)
 
 
-def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor, kv_dtype: str = "bf16"):
+def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor, *, kv_dtype: str = "bf16",
+              moe_group: int = 512, moe_cf: float = TRAIN_CAPACITY_FACTOR):
     """Embedding + every layer over the whole sequence → (x, per-layer
-    caches)."""
+    caches, summed MoE aux loss)."""
     x = _embed_input(params, cfg, tokens)
     b, length = tokens.shape
     pos = torch.arange(length, device=x.device).expand(b, length)
     cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     kvs = []
-    for p in _layers(params):
+    aux = torch.zeros((), device=x.device)
+    for p, is_moe in _layers(params):
         x, kv = _self_attention_full(x, p, cos, sin, cfg, kv_dtype)
-        x = _mlp_sublayer(x, p, cfg)
+        x, a = _ffn_sublayer(x, p, cfg, is_moe, moe_group, moe_cf)
+        aux = aux if a is None else aux + a
         kvs.append(kv)
-    return x, kvs
+    return x, kvs, aux
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits (B, L, V), aux_loss)."""
-    x, _ = _run_full(params, cfg, batch["tokens"])
+def forward(
+    params: dict, cfg: ArchConfig, batch: dict, *, moe_group: int = 512
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits (B, L, V), the MoE layers' summed
+    aux loss, 0 for dense)."""
+    x, _, aux = _run_full(params, cfg, batch["tokens"], moe_group=moe_group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+    return _head(params, cfg, x), aux
 
 
 def prefill(
-    params: dict, cfg: ArchConfig, batch: dict, *, kv_dtype: str = "bf16"
+    params: dict, cfg: ArchConfig, batch: dict, *, kv_dtype: str = "bf16",
+    moe_group: int = 512,
 ) -> tuple[torch.Tensor, tuple]:
     """Prefill pass → (last-position logits (B, V), caches stacked over
     layers: (k, v), each (n_layers, B, L, K, D); for int8, (k, v, k_scale,
     v_scale) with the scales (n_layers, B, L, K, 1) f16)."""
-    x, kvs = _run_full(params, cfg, batch["tokens"], kv_dtype)
+    x, kvs, _ = _run_full(params, cfg, batch["tokens"], kv_dtype=kv_dtype,
+                          moe_group=moe_group, moe_cf=PREFILL_CAPACITY_FACTOR)
     # "last_pos" supports right-padded prompts (serving buckets): logits are
     # taken at the true last prompt token, not the padded end.
     if "last_pos" in batch:
@@ -266,7 +339,7 @@ def decode_step(
     """One decode iteration. ``batch["index"]`` is the write position, a
     scalar or one per sequence; caches are ``(k, v)``, each
     ``(n_layers, B, S, K, D)``, or for int8 ``(k, v, k_scale, v_scale)``,
-    and are updated in place."""
+    and are updated in place. Each sequence's token is its own MoE group."""
     if len(caches) != (4 if kv_dtype == "int8" else 2):
         raise ValueError(f"{len(caches)} cache tensors for kv_dtype {kv_dtype!r}")
     k_all = caches[0]
@@ -278,8 +351,8 @@ def decode_step(
     # the reference's dynamic_update_slice clamps the write into the cache
     write = index.clamp(max=k_all.shape[2] - 1)
     rows = torch.arange(b, device=x.device)
-    for i, p in enumerate(_layers(params)):
+    for i, (p, is_moe) in enumerate(_layers(params)):
         x = _self_attention_decode(x, p, cos, sin, cfg, [c[i] for c in caches], rows, write, lengths)
-        x = _mlp_sublayer(x, p, cfg)
+        x, _ = _ffn_sublayer(x, p, cfg, is_moe, 1, DECODE_CAPACITY_FACTOR)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, x)[:, 0], caches

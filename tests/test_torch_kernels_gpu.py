@@ -62,6 +62,10 @@ FLASH_CASES = [
     (1, 1, 4, 4, 64, torch.bfloat16, 2e-2),
     (1, 128, 4, 2, 256, torch.bfloat16, 2e-2),
     (1, 1, 4, 1, 32, torch.bfloat16, 2e-2),  # D = 32: the CUDA-core variant
+    # The MoE family's heads: qwen3-235b's GQA group of 16, llama4's of 5
+    (1, 256, 64, 4, 128, torch.bfloat16, 2e-2),  # qwen3-235b widths
+    (1, 65, 40, 8, 128, torch.bfloat16, 2e-2),  # llama4 widths, ragged length
+    (2, 200, 16, 1, 64, torch.float32, 2e-5),  # G = 16 on the CUDA cores
 ]
 
 # Lengths: None draws them at random in [1, pps * page]. The kernel splits
@@ -87,6 +91,12 @@ PAGED_CASES = [
     (17, 32, 4, 128, 16, 65_536, torch.bfloat16, torch.bfloat16, 2e-2,
      [4096] + [1 + 241 * i for i in range(16)]),  # S = 1, 2**20 mapped
     (2, 8, 2, 256, 16, 8, torch.float32, torch.float32, 2e-5, None),  # one-stage ring
+    # qwen3-235b's G = 16 (two head-group CTAs a KV head) and llama4's G = 5
+    # (5 of a CTA's 8 head lanes)
+    (8, 64, 4, 128, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, None),
+    (5, 40, 8, 128, 16, 8, torch.bfloat16, torch.bfloat16, 2e-2, [1, 16, 64, 65, 128]),
+    # qwen3's long pool (2 slots x 2048): 8 splits on 132 SMs
+    (2, 64, 4, 128, 16, 128, torch.bfloat16, torch.bfloat16, 2e-2, [2048, 1990]),
 ]
 
 INT8_CASES = [

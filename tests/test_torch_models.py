@@ -15,6 +15,7 @@ reference's own tree, before both packages see it).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -31,7 +32,7 @@ from repro_torch.configs import REGISTRY, ShapeCell, get_config  # noqa: E402
 from repro_torch.models import Model, params_from_numpy  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 
-ARCHS = ["yi-6b", "granite-3-8b"]
+ARCHS = ["yi-6b", "granite-3-8b", "gemma-2b", "granite-34b", "llama3-70b"]
 
 # f32: the two packages sum matmuls and softmaxes in different orders;
 # through 2-4 layers that stays near 1e-6 relative, so 1e-4 on attention
@@ -50,15 +51,29 @@ def bf16_tol(ref) -> float:
     return BF16_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-def reference_params(arch: str, dtype):
-    """The reference's params for the reduced arch, w_q/w_k tempered (see
-    the module docstring), weights cast to ``dtype`` (norms stay f32)."""
-    cfg = jax_config(arch).reduced()
+def _temper(tree: dict) -> dict:
+    """``tree`` with every ``w_q``/``w_k`` in it, at any depth (the MoE
+    family nests its layers under ``moe_block`` / ``dense_block``), scaled
+    by 0.1."""
+    return {
+        k: _temper(v) if isinstance(v, dict)
+        else (v.astype(jnp.float32) * 0.1).astype(v.dtype) if k in ("w_q", "w_k") else v
+        for k, v in tree.items()
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _tempered_init(arch: str, overrides: tuple) -> dict:
+    cfg = dataclasses.replace(jax_config(arch).reduced(), **dict(overrides))
     params = JaxModel(cfg).init(jax.random.key(0))
-    blocks = dict(params["blocks"])
-    for name in ("w_q", "w_k"):
-        blocks[name] = (blocks[name].astype(jnp.float32) * 0.1).astype(jnp.bfloat16)
-    params = {**params, "blocks": blocks}
+    return {**params, "blocks": _temper(params["blocks"])}
+
+
+def reference_params(arch: str, dtype, **overrides):
+    """The reference's params for the reduced arch (with ``overrides``
+    replacing config fields), w_q/w_k tempered (see the module docstring),
+    weights cast to ``dtype`` (norms and the MoE router stay f32)."""
+    params = _tempered_init(arch, tuple(sorted(overrides.items())))
     return jax.tree.map(
         lambda x: x.astype(dtype) if x.dtype == jnp.bfloat16 else x, params
     )
@@ -255,8 +270,10 @@ def test_init_cache_is_bf16_slot_layout():
 
 
 def test_other_families_raise():
+    """The dense, MoE and hybrid families construct; vlm, audio and ssm
+    raise, naming the roadmap item."""
     for cfg in REGISTRY.values():
-        if cfg.family in ("dense", "hybrid"):
+        if cfg.family in ("dense", "moe", "hybrid"):
             Model(cfg.reduced())
         else:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
