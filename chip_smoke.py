@@ -74,16 +74,39 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    (read on a 250-request trace, plain and under the profiler). Every run's
    ``sim_decode`` counter is set to 0 just before it and read just after:
    one launch a round;
+7b. windowed telemetry on the card (``[telemetry]`` lines): the routed
+   Table-2 fleet of phase 6 (10,000 requests) again with
+   ``TelemetryConfig(window=512, events=False)``; it prints every sample
+   (queue depth, active slots and KV share per pool), the wall, iters,
+   rounds, host syncs and ``sim_decode`` launches (counter set to 0 just
+   before, > 0 required); its records must equal phase 6's routed run bit
+   for bit with the same iters, rounds and host syncs, its export must pass
+   ``validate_telemetry`` and its windowed deltas sum to the run's
+   counters. Then the same fleet with its short pool cut to 20 % and an
+   ``AdaptiveController`` over windows of 100 requests, on 2,000 requests
+   on the card and on the CPU: every telemetry column, the controller's
+   history and the loop counts must be equal;
+7c. the paper's tables from the port's own scripts (``[tables]`` lines):
+   ``benchmarks/port_table1_pools.py``, ``port_table2_cost.py``,
+   ``port_table4_calibration.py``, ``port_table5_mi300x.py`` and
+   ``port_cost_model_gap.py`` on the host, ``port_table3_latency.py`` at
+   its default 1/5 scale on the card (``sim_decode`` counter set to 0 just
+   before, > 0 required); Table 2's Azure instance counts (72 + 232
+   against 364 on the table's seed-42 trace; 72 + 224 against 355 on
+   phase 6's seed-0 trace) and both of Table 3's fleets meeting
+   ``PAPER_SLO`` are checked;
 8. prints the earlier design's times at the JSON line's shapes on a line
    of their own (``[prior]``, copied from PERF.md, not measured here), the
    kernels' JSON line (each entry carries the timing floor; flash and paged
    entries their variant or split count, the SSD scan its P split and CTA
    count; flash and paged also at the MoE family's head layouts, ``_g16``
-   on the qwen3 serve's path, ``_g5`` on the scout run's), the card's name
+   on the qwen3 serve's path, ``_g5`` on the scout run's;
+   ``sim_decode_telemetry`` with the telemetry run's launches), the card's name
    and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Any failed phase raises, so the script exits non-zero and prints no result;
+Each phase ends with a ``[time]`` line, the seconds since the script
+started. Any failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without a GPU, and a directory without the repository.
 """
 
@@ -106,6 +129,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.adaptive import AdaptiveController  # noqa: E402
 from repro_torch.core.cost_model import closed_form_savings  # noqa: E402
 from repro_torch.core.pools import (  # noqa: E402
     PoolConfig,
@@ -133,9 +157,18 @@ from repro_torch.kernels.ssd_scan import P_TILE, ssd_scan, ssd_scan_plain  # noq
 from repro_torch.launch.serve import run_workload, serve  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.transformer import quantize_kv  # noqa: E402
+from repro_torch.obs import TelemetryConfig, validate_telemetry  # noqa: E402
+from repro_torch.obs.validate import check_window_deltas  # noqa: E402
 from repro_torch.serving import ServeRequest, ServingEngine, TwoPoolServer  # noqa: E402
-from repro_torch.sim import A100_LLAMA3_70B, FleetSim, plan_fleet, run_fleet_grid  # noqa: E402
+from repro_torch.sim import (  # noqa: E402
+    A100_LLAMA3_70B,
+    PAPER_SLO,
+    FleetSim,
+    plan_fleet,
+    run_fleet_grid,
+)
 from repro_torch.sim import torch_engine  # noqa: E402
+from repro_torch.sim.fleet import record_columns, same_records  # noqa: E402
 from repro_torch.traces import TraceSpec, generate_trace_columns  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor-core
@@ -236,6 +269,17 @@ SIM_DECODE_SLOT_OPS = 40
 GRID = dict(fig6_requests=2000, fig6_rate=20.0, fig6_seed=42,
             fig6_thresholds=(2048, 4096, 8192, 16_384, 32_768), cross=1000,
             requests=2000, ladders=(1, 4, 16), profile=250)
+# Windowed telemetry (``[telemetry]``): the routed Table-2 run of ``[des]``
+# with windows of ``window`` dispatched requests; the card-against-CPU
+# check on a ``cross``-request trace of the same spec, the short pool cut
+# to ``cut`` of its instances so the AIMD controller (windows of
+# ``control_window``) moves the boundary.
+TELEMETRY = dict(window=512, cross=2000, cut=0.2, control_window=100)
+# Table 2's Azure instance counts (short, long, homogeneous): the table's
+# own trace (seed 42, ``benchmarks/table2_cost.py``) and the ``[des]``
+# trace (seed 0), as the reference's ``plan_fleet`` sizes them.
+TABLE2_AZURE = (72, 232, 364)
+TABLE2_DES = (72, 224, 355)
 
 
 def fail(msg: str) -> None:
@@ -868,11 +912,12 @@ def sim_decode_phase(dev, flush, shape: tuple[int, int, int, int], c_max: list[i
     return row
 
 
-def run_des(pools, cols, dev, *, label: str) -> dict:
-    """One fleet run through ``backend="torch"``; prints what the paper's
-    tables read and the loop's counters."""
+def run_des(pools, cols, dev, *, label: str, tag: str = "des", **fleet_kw) -> dict:
+    """One fleet run through ``backend="torch"`` (``fleet_kw`` go to
+    ``FleetSim``: telemetry, a controller); prints what the paper's tables
+    read and the loop's counters."""
     sim = FleetSim(pools, A100_LLAMA3_70B, b_short=DES["b_short"], backend="torch",
-                   device=dev, spillover=False)
+                   device=dev, spillover=False, **fleet_kw)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -893,7 +938,7 @@ def run_des(pools, cols, dev, *, label: str) -> dict:
     if sum(routed.values()) != n:
         fail(f"{label}: {sum(routed.values())} routing decisions for {n} requests")
     fractions = {k: round(v / n, 4) for k, v in routed.items()}
-    print(f"[des] {label} on {dev.type}: {n} requests, {sum(c for _, c in pools.values())} "
+    print(f"[{tag}] {label} on {dev.type}: {n} requests, {sum(c for _, c in pools.values())} "
           f"instances; completed {s.completed} rejected {s.rejected} preempted "
           f"{res.preemptions} truncated {s.truncated} (of {s.num_requests} after warm-up); "
           f"TTFT p99 {s.ttft_p99:.4f} s TPOT p99 {s.tpot_p99:.4f} s, meets SLO "
@@ -901,10 +946,6 @@ def run_des(pools, cols, dev, *, label: str) -> dict:
           f"{stats['rounds']} host syncs {stats['host_syncs']}; {wall:.2f} s wall, "
           f"{n / wall:.1f} simulated requests per wall second", flush=True)
     return dict(sim=sim, res=res, stats=stats, wall_s=wall)
-
-
-def record_columns(sim) -> dict:
-    return {name: pool.record_arrays() for name, pool in sim.pools.items()}
 
 
 def des_phase(dev, flush) -> dict:
@@ -915,7 +956,7 @@ def des_phase(dev, flush) -> dict:
                               [None, math.inf, None])
 
     decode_advance.launches = 0
-    run_des(routed, cols, dev, label="routed Table-2 fleet")
+    full = run_des(routed, cols, dev, label="routed Table-2 fleet")
     launches = decode_advance.launches
     print(f"[des] sim_decode launches on the routed run: {launches}", flush=True)
     if launches == 0:
@@ -945,7 +986,27 @@ def des_phase(dev, flush) -> dict:
           f"({sum(len(v['request_id']) for v in a.values())} rows), iters/rounds "
           f"{on_card['stats']['iters']}/{on_card['stats']['rounds']} on both", flush=True)
     profile_des(routed, dev)
-    return dict(kernel=kernel, launches=launches, plan=plan, routed=routed, shape=shape)
+    return dict(kernel=kernel, launches=launches, plan=plan, routed=routed, shape=shape,
+                cols=cols, records=record_columns(full["sim"]), stats=full["stats"],
+                wall_s=full["wall_s"])
+
+
+def device_activities(prof) -> dict:
+    """A finished profile's device activities (kernels, copies, fills) by
+    name: ``(count, device microseconds)``, the sums ``key_averages()``
+    gives its CUDA rows. Read from the profiler's raw events: building the
+    per-op event tree behind ``key_averages()`` costs the host about 90 us
+    an event, minutes on a 1,000-round DES run."""
+    out: dict[str, tuple[int, float]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA or e.is_async()
+                or e.is_user_annotation() or e.duration_ns() <= 0):
+            continue
+        count, us = out.get(e.name(), (0, 0.0))
+        out[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
+    if not out:
+        fail("the profile holds no device activity")
+    return out
 
 
 def profile_des(pools, dev) -> dict:
@@ -961,24 +1022,22 @@ def profile_des(pools, dev) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run = run_des(pools, cols, dev, label="routed, profiled")
     rounds = run["stats"]["rounds"]
-    kernels = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels = device_activities(prof)
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3
     wall_ms = run["wall_s"] * 1e3
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
     out = dict(
         round_ms=wall_ms / rounds, device_ms_per_round=busy_ms / rounds,
-        busy_share=busy_ms / wall_ms, kernels_per_round=sum(e.count for e in kernels) / rounds,
+        busy_share=busy_ms / wall_ms,
+        kernels_per_round=sum(count for count, _ in kernels.values()) / rounds,
     )
     print(f"[des-profile] {rounds} rounds: {out['round_ms']:.3f} ms of wall and "
           f"{1e3 * out['device_ms_per_round']:.1f} us of device time per round, "
           f"{out['kernels_per_round']:.1f} kernels per round; device busy "
           f"{100 * out['busy_share']:.2f}% of the wall")
-    for e in top:
-        print(f"[des-profile]   {e.self_device_time_total / rounds:8.2f} us/round "
-              f"{e.count / rounds:6.2f}/round  {e.key[:70]}")
+    for name, (count, us) in top:
+        print(f"[des-profile]   {us / rounds:8.2f} us/round "
+              f"{count / rounds:6.2f}/round  {name[:70]}")
     return out
 
 
@@ -1010,8 +1069,7 @@ def grid_run(label: str, fn, *, lanes: int, n: int, busy_fn=None) -> dict:
         _, short_wall = timed(busy_fn)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             timed(busy_fn)
-        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        busy_ms = sum(us for _, us in device_activities(prof).values()) / 1e3
         busy = busy_ms / (short_wall * 1e3)
         share = f"{100 * busy:.2f}% of the wall ({GRID['profile']}-request run)"
     print(f"[grid] {label}: {lanes} lane(s), {n} requests: {wall:.3f} s wall, iters "
@@ -1117,6 +1175,147 @@ def grid_phase(dev, flush, des: dict) -> dict:
     return dict(kernel=kernel, launches=walls[G]["launches"])
 
 
+# ---------------------------------------------------------------------------
+# Windowed telemetry on the card, and the paper's tables from the port
+# ---------------------------------------------------------------------------
+
+
+def telemetry_phase(dev, des: dict) -> dict:
+    """``[telemetry]``: the routed Table-2 fleet of ``[des]`` (10,000
+    requests) again, with windows of ``TELEMETRY["window"]`` dispatched
+    requests: its records must equal ``[des]``'s routed run bit for bit,
+    with the same rounds and host syncs; its export must validate and its
+    windowed deltas sum to the run's counters. Then the same fleet with its
+    short pool cut to ``TELEMETRY["cut"]`` of its instances and an
+    ``AdaptiveController`` over windows of ``TELEMETRY["control_window"]``,
+    on ``TELEMETRY["cross"]`` requests on the card and on the CPU: every
+    column and the controller's history must be equal."""
+    decode_advance.launches = 0
+    run = run_des(des["routed"], des["cols"], dev, label="routed Table-2 fleet, telemetry",
+                  tag="telemetry", telemetry=TelemetryConfig(window=TELEMETRY["window"],
+                                                             events=False))
+    launches = decode_advance.launches
+    sim, res, stats, wall = run["sim"], run["res"], run["stats"], run["wall_s"]
+    if launches == 0:
+        fail("sim_decode was never launched on the telemetry run")
+    tel = res.telemetry
+    doc = validate_telemetry(tel.to_json())
+    n = len(des["cols"])
+    cols = tel.columns
+    pools = list(tel.pool_names)
+    for i in range(tel.num_samples):
+        print(f"[telemetry] sample {i}: t_req {cols['t_req'][i]} t_sim {cols['t_sim'][i]:.4f} s "
+              + " ".join(f"{p}: queue {cols[f'queue_depth.{p}'][i]} active "
+                         f"{cols[f'active.{p}'][i]} kv {cols[f'kv_frac.{p}'][i]:.4f}"
+                         for p in pools), flush=True)
+    try:
+        check_window_deltas(tel, res)
+    except ValueError as err:
+        fail(f"telemetry: {err}")
+    if not same_records(record_columns(sim), des["records"]):
+        fail("telemetry: the records differ from [des]'s routed run")
+    for key in ("iters", "rounds", "host_syncs"):
+        if stats[key] != des["stats"][key]:
+            fail(f"telemetry: {key} {stats[key]} differs from [des]'s {des['stats'][key]}")
+    if doc["num_samples"] != n // TELEMETRY["window"] + 1:
+        fail(f"telemetry: {doc['num_samples']} samples for {n} requests")
+    print(f"[telemetry] routed Table-2 fleet, {n} requests, windows of {TELEMETRY['window']}: "
+          f"{tel.num_samples} samples, export valid; {wall:.2f} s wall ([des] {des['wall_s']:.2f} "
+          f"s without telemetry), iters {stats['iters']} rounds {stats['rounds']} host syncs "
+          f"{stats['host_syncs']} (equal to [des]'s), sim_decode launches {launches}; records "
+          f"bit-identical to [des]'s routed run", flush=True)
+
+    short_cfg, n_short = des["routed"]["short"]
+    cut = dict(des["routed"], short=(short_cfg, max(1, int(n_short * TELEMETRY["cut"]))))
+    trace = generate_trace_columns(TraceSpec(trace=DES["trace"], num_requests=TELEMETRY["cross"],
+                                             rate=DES["rate"], seed=DES["seed"]))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        ctrl = AdaptiveController(b_min=512)
+        r = run_des(cut, trace, d, label=f"controlled fleet (short pool {cut['short'][1]} of "
+                    f"{n_short})", tag="telemetry", controller=ctrl,
+                    control_window=TELEMETRY["control_window"],
+                    telemetry=TelemetryConfig(window=TELEMETRY["control_window"], events=False))
+        tel_d = r["res"].telemetry
+        runs.append((tel_d, ctrl, r["stats"]))
+        print(f"[telemetry] controlled fleet on {d.type}: {tel_d.num_samples} samples, "
+              f"{len(ctrl.history)} boundary moves, final thresholds {ctrl.thresholds}",
+              flush=True)
+    (gt, gc, gs), (ct, cc, cs) = runs
+    if gt.num_samples != ct.num_samples or set(gt.columns) != set(ct.columns):
+        fail("telemetry: the card's and the CPU's samples or column sets differ")
+    for name in ct.columns:
+        if not np.array_equal(gt.column(name), ct.column(name), equal_nan=True):
+            fail(f"telemetry: column {name} differs between the card and the CPU")
+    if [dataclasses.astuple(m) for m in gc.history] != [dataclasses.astuple(m) for m in cc.history]:
+        fail("telemetry: the controller's history differs between the card and the CPU")
+    if not cc.history:
+        fail("telemetry: the controlled fleet never moved a boundary")
+    if (gs["iters"], gs["rounds"]) != (cs["iters"], cs["rounds"]):
+        fail(f"telemetry: loop counters differ between the card and the CPU: {gs} vs {cs}")
+    print(f"[telemetry] n={TELEMETRY['cross']}: card and CPU equal in all {len(ct.columns)} "
+          f"columns x {ct.num_samples} samples and the controller's {len(cc.history)} moves",
+          flush=True)
+    return dict(launches=launches, wall_s=wall, samples=tel.num_samples, stats=stats)
+
+
+def tables_phase(dev, des: dict) -> dict:
+    """``[tables]``: the paper's tables from the port's scripts: Tables 1,
+    2, 4 and 5 and the Eq. 7 / 8 gap on the host, Table 3 at its default
+    1/5 scale on the card (its sim_decode counter set to 0 just before and
+    read just after). Table 2's Azure instance counts and both of Table 3's
+    fleets meeting the paper's SLO are checked."""
+    import contextlib
+    import io
+
+    from benchmarks import (
+        common, port_cost_model_gap, port_table1_pools, port_table2_cost,
+        port_table3_latency, port_table4_calibration, port_table5_mi300x,
+    )
+
+    out = {}
+
+    def rows(label, fn, **kw):
+        common.reset_rows()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            out[label] = fn(**kw)
+        wall = time.perf_counter() - t0
+        for row in common.rows_as_json()["rows"]:
+            print(f"[tables] {row['name']} {row['derived_raw']} ({row['us_per_call']:.1f} us)",
+                  flush=True)
+        print(f"[tables] {label}: {wall:.2f} s", flush=True)
+
+    for label, mod in (("table1", port_table1_pools), ("table2", port_table2_cost),
+                       ("table4", port_table4_calibration), ("table5", port_table5_mi300x),
+                       ("cost_model_gap", port_cost_model_gap)):
+        rows(label, mod.run)
+    decode_advance.launches = 0
+    rows("table3", port_table3_latency.run, device=dev)
+    launches = decode_advance.launches
+    if launches == 0:
+        fail("sim_decode was never launched on Table 3's runs")
+
+    az = out["table2"]["azure"]
+    got = (az.short.instances, az.long.instances, az.g_homo)
+    if got != TABLE2_AZURE:
+        fail(f"Table 2 (Azure, seed 42): short + long against homogeneous {got}, "
+             f"expected {TABLE2_AZURE}")
+    plan = des["plan"]
+    if (plan.short.instances, plan.long.instances, plan.g_homo) != TABLE2_DES:
+        fail(f"the [des] plan (seed {DES['seed']}) is not {TABLE2_DES}")
+    for key in ("homogeneous", "token_budget"):
+        res = out["table3"][key]
+        if not res.summary.meets_slo(PAPER_SLO):
+            fail(f"Table 3 {key} misses the paper's SLO: TTFT p99 {res.summary.ttft_p99} s, "
+                 f"TPOT p99 {res.summary.tpot_p99} s")
+    print(f"[tables] Table 2 Azure {got[0]} + {got[1]} against {got[2]} (seed 42), the [des] "
+          f"plan {TABLE2_DES[0]} + {TABLE2_DES[1]} against {TABLE2_DES[2]} (seed "
+          f"{DES['seed']}); Table 3 both fleets meet PAPER_SLO on the card, sim_decode launches "
+          f"{launches}", flush=True)
+    return dict(launches=launches)
+
+
 def sass_mma_counts() -> dict:
     """Each built library's counts of tensor-core instructions in its SASS:
     HGMMA (wgmma) and HMMA (mma.sync)."""
@@ -1132,6 +1331,13 @@ def sass_mma_counts() -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    start = time.perf_counter()
+
+    def stamp(phase: str) -> None:
+        """Seconds since the script's start at the end of each phase: the
+        run must stay inside its time limit as phases are added."""
+        print(f"[time] {phase} done at {time.perf_counter() - start:.1f} s", flush=True)
+
     dev = torch.device("cuda")
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)}", flush=True)
@@ -1181,6 +1387,7 @@ def main() -> None:
     paged_g16 = paged_phase(dev, flush, heads=moe_heads, tag=MOE)
     paged_g5 = paged_phase(dev, flush, heads=scout_heads, tag=SCOUT, pools=POOLS[:1])
     del flush
+    stamp("build and kernel rows")
 
     served = serve_phase(DENSE, ("flash_attention", "paged_attention"), "serve")
     profile_decode(served["server"], "profile")
@@ -1190,6 +1397,7 @@ def main() -> None:
     logits_int8_check(served8["server"])
     served_launches, int8_launches = served["launches"], served8["launches"]
     del served, served8
+    stamp("yi-6b serves")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1198,6 +1406,7 @@ def main() -> None:
     profile_decode(hybrid["server"], "profile-hybrid")
     logits_check(hybrid["server"], "logits-hybrid")
     del hybrid["server"]
+    stamp("zamba2 serve")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1206,16 +1415,24 @@ def main() -> None:
     cut = moe["server"].short_engine.model.cfg
     logits_check(moe["server"], "logits-moe", model=Model(cut, moe_group=1))
     del moe["server"]
+    stamp("qwen3 serve")
     gc.collect()
     torch.cuda.empty_cache()
     scout = scout_phase(dev)
+    stamp("scout decode")
     gc.collect()
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     des = des_phase(dev, flush)
+    stamp("des")
     grid = grid_phase(dev, flush, des)
     del flush
+    stamp("grid")
+    telemetry = telemetry_phase(dev, des)
+    stamp("telemetry")
+    tables_phase(dev, des)
+    stamp("tables")
 
     # The JSON line carries each kernel at its path's shapes: the largest
     # prompt bucket of yi-6b (L=256) and zamba2's longest short-pool prompt
@@ -1277,6 +1494,10 @@ def main() -> None:
                        paged8["short"], ssd_rows[256], flash_g16[256], paged_g16["short"],
                        flash_g5[256], paged_g5["short"])):
         k.update({key: row[key] for key in ("variant", "splits", "p_split", "ctas") if key in row})
+    kernels.append(
+        entry("sim_decode_telemetry", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
+              f"DES routed Table-2 fleet, telemetry windows of {TELEMETRY['window']}",
+              telemetry["launches"], des["kernel"], f"(G, P, I, S) = {des['kernel']['shape']}"))
     print("[prior] the earlier design's ms at these shapes (PERF.md's table, not measured "
           "in this run): " + ", ".join(f"{k} {v}" for k, v in PRIOR_MS.items()))
     print(json.dumps({"kernels": kernels}))

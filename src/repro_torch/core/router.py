@@ -104,6 +104,26 @@ class TokenBudgetRouter:
         self._states = self.pools.states
         self._names = self.pools.names
 
+    # -- compatibility views --------------------------------------------------
+    @property
+    def short(self) -> PoolState:
+        """Smallest-budget pool (P=2 compatibility view)."""
+        return self.pools.states[0]
+
+    @property
+    def long(self) -> PoolState:
+        """Largest-budget pool (P=2 compatibility view)."""
+        return self.pools.states[-1]
+
+    @property
+    def b_short(self) -> int:
+        """First routing threshold ``B_1`` (P=2 compatibility view)."""
+        return int(self.pools.thresholds[0])
+
+    @b_short.setter
+    def b_short(self, value: int) -> None:
+        self.pools.set_threshold(0, value)
+
     # -- dispatch (Algorithm 1 lines 1–14) ----------------------------------
     def route(
         self, request: Request, blocked: Optional[frozenset] = None
@@ -211,6 +231,10 @@ class TokenBudgetRouter:
 # Batch routing on tensors
 # ---------------------------------------------------------------------------
 
+#: Pool ids of the paper's P=2 topology (indices into the ordered PoolSet).
+SHORT, LONG = 0, 1
+
+
 def pool_ids(thresholds: torch.Tensor, budgets: torch.Tensor) -> torch.Tensor:
     """Budget → pool-index dispatch: ``searchsorted`` over ``B_1 < … <
     B_{P-1}`` (Algorithm 1's static threshold search, left side), int32 ids
@@ -241,8 +265,8 @@ def route_batch(
     """
     if thresholds is None:
         thresholds = [min(b_short, short_cmax)]
-    th = torch.as_tensor(np.asarray(thresholds, dtype=np.int32))
     budgets = estimate_budget(
         state, byte_lens, max_output_tokens, categories, gamma=gamma
     )
+    th = torch.as_tensor(np.asarray(thresholds, dtype=np.int32), device=budgets.device)
     return pool_ids(th, budgets), budgets

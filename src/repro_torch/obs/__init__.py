@@ -12,10 +12,9 @@ backends into sources of those observables:
   ``FleetResult.telemetry`` with ``to_json()`` / ``to_csv()``;
 * :class:`~repro_torch.obs.events.EventTrace` — a bounded ring buffer of typed
   events exportable as JSONL and Chrome trace-event JSON (Perfetto-loadable,
-  one pool per track).
-
-The reference's schema validators (``repro.obs.validate``) are not copied:
-nothing in the port calls them.
+  one pool per track);
+* :mod:`~repro_torch.obs.validate` — schema validators shared by the
+  telemetry smoke (``benchmarks/port_telemetry_smoke.py``) and the tests.
 
 Enable via ``FleetSim(..., telemetry=TelemetryConfig(events=True))`` (or
 ``telemetry=True`` for defaults). With telemetry off (the default) the
@@ -121,6 +120,11 @@ from repro_torch.obs.events import (
 )
 from repro_torch.obs.registry import Counter, Gauge, Histogram, MetricsRegistry
 from repro_torch.obs.timeseries import FleetTelemetry, TelemetryConfig
+from repro_torch.obs.validate import (
+    validate_chrome_trace,
+    validate_events_jsonl,
+    validate_telemetry,
+)
 
 __all__ = [
     "ARRIVAL",
@@ -146,4 +150,7 @@ __all__ = [
     "MetricsRegistry",
     "FleetTelemetry",
     "TelemetryConfig",
+    "validate_telemetry",
+    "validate_events_jsonl",
+    "validate_chrome_trace",
 ]

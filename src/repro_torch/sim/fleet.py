@@ -43,8 +43,9 @@ host tiers run only when a caller names them:
     the ``sim_decode`` kernel. Bit-identical to the host backends in the
     exact classes and to the reference's ``jax`` tier everywhere
     (arrival-ordered calibration feedback, spillover off). Fault
-    injection, event tracing and windowed telemetry are not supported
-    (``FleetSim`` raises).
+    injection and event tracing are not supported (``FleetSim`` raises);
+    windowed telemetry is snapshotted on the device at each window and
+    replayed into the host registry after the run.
 
 All backends accept either a ``Sequence[Request]`` or a ``TraceColumns``;
 the reference backend materializes objects from columns, the columnar
@@ -383,15 +384,10 @@ class FleetSim:
             )
         elif retry_policy is not None:
             raise ValueError("retry_policy has no effect without injector=")
-        if telemetry is not None and backend == "torch":
-            if telemetry.events:
-                raise ValueError(
-                    "event tracing (telemetry events=True) is not supported "
-                    "on the torch backend"
-                )
-            raise NotImplementedError(
-                "windowed telemetry is not supported on the torch backend "
-                "yet; use backend='vectorized'"
+        if telemetry is not None and telemetry.events and backend == "torch":
+            raise ValueError(
+                "event tracing (telemetry events=True) is not supported "
+                "on the torch backend; windowed time series are"
             )
         if telemetry is not None:
             self.telemetry = FleetTelemetry(
@@ -1020,6 +1016,24 @@ class FleetSim:
             telemetry=self.telemetry,
             slo=self.slo,
         )
+
+
+def record_columns(sim: FleetSim) -> dict:
+    """Every pool's per-request record columns after ``sim.run``."""
+    return {name: pool.record_arrays() for name, pool in sim.pools.items()}
+
+
+def same_records(a: dict, b: dict) -> bool:
+    """Two :func:`record_columns` results equal bit for bit: the same
+    pools and columns, each with the same dtype and bytes."""
+    return a.keys() == b.keys() and all(
+        a[p].keys() == b[p].keys()
+        and all(
+            a[p][c].dtype == b[p][c].dtype and a[p][c].tobytes() == b[p][c].tobytes()
+            for c in a[p]
+        )
+        for p in a
+    )
 
 
 def run_fleet(

@@ -64,10 +64,20 @@ alone, so the host and the device each keep their own copy and no host
 value is copied to the device inside the loop. The per-request records, the
 slot state and the time limits stay on the device.
 
+Telemetry: with windowed telemetry on, each window boundary also writes
+one row of per-window snapshot tensors on the device (post-controller
+thresholds, queue depths, active slots, free blocks, the cumulative
+preemption / rejection / truncation counters, the dispatched arrival's
+time), as the reference's compiled tier does. The host keeps the window
+index by counting, so the snapshots add no host read; they are read once
+after the loop and replayed into the host
+:class:`~repro_torch.obs.timeseries.FleetTelemetry`
+(:func:`_replay_telemetry`). With telemetry off nothing is allocated or
+written.
+
 Left out, against the reference: the AOT executable cache and its probes
-(XLA-specific), and the in-loop telemetry window snapshots and their replay
-(``FleetSim`` raises for telemetry, event tracing and fault injection on
-this backend).
+(XLA-specific). ``FleetSim`` raises for event tracing and fault injection
+on this backend, as the reference's compiled tier does.
 """
 
 from __future__ import annotations
@@ -164,6 +174,22 @@ def _fresh_records(n: int, g: int, device: torch.device) -> dict:
     return rec
 
 
+def _init_windows(g: int, P: int, nb: int, win_cap: int, device: torch.device) -> dict:
+    """Per-window telemetry snapshots of ``g`` lanes, ``win_cap`` rows each:
+    the dispatched count and time at the boundary, the thresholds (``nb``
+    columns) and the per-pool gauges and cumulative counters."""
+
+    def zeros(shape, dtype):
+        return torch.zeros((g, win_cap) + shape, dtype=dtype, device=device)
+
+    return {
+        "t_req": zeros((), I32),
+        "now": zeros((), F64),
+        "th": zeros((nb,), I32),
+        **{k: zeros((P,), I32) for k in ("queue", "active", "freeb", "pre", "rej", "trunc")},
+    }
+
+
 def _init_pools(spec: _SimSpec, n: int, g: int, device: torch.device) -> dict:
     """Stacked ``(G, P, I, S)`` pool state (padded to the widest pool)."""
     P = len(spec.pools)
@@ -225,11 +251,13 @@ class _FleetLoop:
     counters are host integer arrays: they evolve by counting alone. ``a``
     and the window counters have device twins that the same masks advance,
     so the loop never copies a host value to the device. Everything else
-    lives on ``device``.
+    lives on ``device``. With ``telemetry`` the window boundaries also fill
+    the snapshot tensors of :func:`_init_windows`, at row indices the host
+    counts (``wi``).
     """
 
     def __init__(self, spec: _SimSpec, trace: dict, lanes: dict, device: torch.device,
-                 *, grid: bool):
+                 *, grid: bool, telemetry: bool = False):
         dev = self.dev = device
         self.spec = spec
         self.grid = grid
@@ -283,6 +311,10 @@ class _FleetLoop:
         self.moves = torch.zeros((G,), dtype=I32, device=dev)
         # (window fire mask, dispatched count, thresholds) at each boundary
         self.win_log: list[tuple[np.ndarray, np.ndarray, torch.Tensor]] = []
+        self.wins = None
+        self.wi = np.zeros(G, np.int64)  # snapshot rows written, per lane
+        if telemetry and self.win > 0:
+            self.wins = _init_windows(G, P, max(P - 1, 1), n // self.win + 2, dev)
         self._wake_min = np.full(G, math.inf)  # last values read from the device
         self._wake_min_dev = torch.full((G,), math.inf, dtype=F64, device=dev)
         self._wake_fresh = True  # no wake has changed since that read
@@ -323,12 +355,14 @@ class _FleetLoop:
         return live
 
     # -- monitoring window + in-loop AIMD controller ---------------------------
-    def window_step(self, fire: np.ndarray) -> None:
+    def window_step(self, fire: np.ndarray, now: torch.Tensor) -> None:
         """One window boundary in the lanes of ``fire`` (only called when
         some lane's fires): the AIMD rule of ``AdaptiveController`` per
         boundary in float32, the feasibility projection, then the threshold
-        snapshot for the controller history. The device computes the same
-        fire mask from its own window counters."""
+        snapshot for the controller history and, with telemetry, one
+        snapshot row a firing lane taken at ``now`` (the dispatched
+        arrival's time). The device computes the same fire mask from its
+        own window counters."""
         st, P = self.st, self.P
         wr_dev = self.win_seen_dev - self.win_prev_dev
         fire_dev = wr_dev >= self.win
@@ -367,9 +401,33 @@ class _FleetLoop:
             self.moves = self.moves + (apply & (newv != old).any(dim=1)).to(I32)
             self.th = torch.where(apply[:, None], newv, old)
         self.win_log.append((fire.copy(), self.win_seen.copy(), self.th))
+        if self.wins is not None:
+            self.snapshot(fire, now)
         self.prev_err = torch.where(fire_dev[:, None], cur, self.prev_err)
         self.win_prev = np.where(fire, self.win_seen, self.win_prev)
         self.win_prev_dev = torch.where(fire_dev, self.win_seen_dev, self.win_prev_dev)
+
+    def snapshot(self, fire: np.ndarray, now: torch.Tensor) -> None:
+        """One telemetry row in each lane of ``fire``, after the controller
+        has moved the thresholds: the row index is the host's window count,
+        so the values are written with no host read."""
+        st = self.st
+        vals = {
+            "t_req": self.win_seen_dev.to(I32),
+            "now": now,
+            "queue": st["qlen"].sum(dim=-1, dtype=I32),
+            "active": st["nact"].sum(dim=-1, dtype=I32),
+            "freeb": st["free"].sum(dim=-1, dtype=I32),
+            "pre": st["npre"],
+            "rej": st["nrej"],
+            "trunc": st["ntr"],
+        }
+        if self.P > 1:  # one pool has no boundary: its column stays 0
+            vals["th"] = self.th
+        for g in np.flatnonzero(fire):
+            for key, val in vals.items():
+                self.wins[key][g, self.wi[g]] = val[g]
+        self.wi += fire
 
     # -- arrival drain -----------------------------------------------------------
     def dispatch(self, m: np.ndarray) -> None:
@@ -416,7 +474,7 @@ class _FleetLoop:
         if self.win > 0:
             fire = self.win_seen - self.win_prev >= self.win
             if fire.any():
-                self.window_step(fire)
+                self.window_step(fire, t)
 
     def drain(self) -> None:
         # Arrival-first tie-break: dispatch while t_arr <= every wake of the
@@ -674,6 +732,10 @@ class _FleetLoop:
             "truncate": st["ntr"].cpu().numpy(),
             "th": self.th.cpu().numpy(),
             "moves": self.moves.cpu().numpy(),
+            "nwin": self.wi.copy(),
+            "win": None if self.wins is None else {
+                k: v.cpu().numpy() for k, v in self.wins.items()
+            },
         }
 
     def history(self, lane: int) -> list[tuple[int, np.ndarray]]:
@@ -804,8 +866,8 @@ def run_fleet_torch(fleet, trace):
     Called by ``FleetSim.run`` for ``backend="torch"``, on
     ``fleet.device``. The fleet's ``VectorPoolSim`` shells receive the
     device-computed records and counters afterwards, so
-    ``fleet.pools[name].record_arrays()`` and ``router.stats()`` behave
-    like a host run.
+    ``fleet.pools[name].record_arrays()``, the telemetry replay and
+    ``router.stats()`` behave like a host run.
     """
     from repro_torch.sim.fleet import FleetResult
     from repro_torch.sim.metrics import summarize_columns
@@ -830,6 +892,11 @@ def run_fleet_torch(fleet, trace):
         th0 = [int(b) for b in router.pools.thresholds]
     else:
         th0 = []
+    if fleet.telemetry is not None:
+        fleet.telemetry.set_trace(
+            cols.byte_len, cols.category, cols.true_input_tokens,
+            cols.max_output_tokens,
+        )
 
     if n == 0:
         empty = {k: np.empty(0, dt) for k, dt in (
@@ -843,7 +910,7 @@ def run_fleet_torch(fleet, trace):
             per_pool={name: summarize_columns(name, empty) for name in ordered},
             router_stats=router.stats() if router else {},
             preemptions=0, rejections=0, truncations=0,
-            telemetry=None, slo=fleet.slo,
+            telemetry=fleet.telemetry, slo=fleet.slo,
         )
 
     trace_arrays = {
@@ -859,8 +926,10 @@ def run_fleet_torch(fleet, trace):
         ),
         "ctrl": _ctrl_params(fleet.controller, enabled=True),
     }
-    loop = _FleetLoop(spec, trace_arrays, lane, fleet.device, grid=False)
+    loop = _FleetLoop(spec, trace_arrays, lane, fleet.device, grid=False,
+                      telemetry=fleet.telemetry is not None)
     dev_out = loop.run()
+    win = dev_out.pop("win")
     _LAST_RUN.clear()
     _LAST_RUN.update(
         mode="fleet",
@@ -898,9 +967,16 @@ def run_fleet_torch(fleet, trace):
         if router is not None:
             router.routed[name] += int(routed[idx])
 
+    final_th = [int(b) for b in out["th"][: P - 1]]
     if router is not None and fleet.controller is not None:
-        router.pools.set_thresholds([int(b) for b in out["th"][: P - 1]])
+        router.pools.set_thresholds(final_th)
         _synthesize_history(fleet.controller, loop.history(0), th0)
+
+    if fleet.telemetry is not None:
+        _replay_telemetry(
+            fleet, shells, spec, out, {k: v[0] for k, v in win.items()}, n,
+            float(np.max(out["recf"][:, 1])), final_th,
+        )
 
     return FleetResult(
         summary=summarize_columns("fleet", fleet_cols),
@@ -912,7 +988,7 @@ def run_fleet_torch(fleet, trace):
         preemptions=int(out["preempt"].sum()),
         rejections=int(out["reject"].sum()),
         truncations=int(out["truncate"].sum()),
-        telemetry=None,
+        telemetry=fleet.telemetry,
         slo=fleet.slo,
     )
 
@@ -930,6 +1006,52 @@ def _synthesize_history(controller, history: list, th0: list) -> None:
                     BoundaryMove(t=int(t_req), boundary=k, value=b, reason="device")
                 )
         prev = cur
+
+
+def _replay_telemetry(fleet, shells, spec, out, win, n, t_end, final_th) -> None:
+    """Replay the device window snapshots into the host FleetTelemetry; the
+    counterpart of the reference function of the same name.
+
+    Same windows, same sampling order as the host backends: the
+    controller's thresholds first, then the sample; then the final flush
+    at ``t_end`` from the drained end state. Counter columns come from the
+    device's cumulative per-pool counters, gauges (queue depth, active,
+    kv_frac) from the snapshot state. The calibration-error series uses the
+    final EMA state for every window, because the device run does not carry
+    the float EMA: the reference's own documented approximation."""
+    telemetry = fleet.telemetry
+    router = fleet.router
+    controlled = router is not None and fleet.controller is not None
+    prev_req = 0
+    for shell in shells:
+        shell.blocks_free = np.zeros(shell.num_instances, dtype=np.int64)
+    for w in range(int(out["nwin"])):
+        for idx, shell in enumerate(shells):
+            shell.preemption_count = int(win["pre"][w, idx])
+            shell.rejection_count = int(win["rej"][w, idx])
+            shell.truncation_count = int(win["trunc"][w, idx])
+            shell.state.queue_depth = int(win["queue"][w, idx])
+            shell.state.active = int(win["active"][w, idx])
+            shell.blocks_free[:] = 0
+            shell.blocks_free[0] = int(win["freeb"][w, idx])
+        if controlled:
+            router.pools.set_thresholds(
+                [int(b) for b in win["th"][w][: len(router.pools) - 1]]
+            )
+        t_req = int(win["t_req"][w])
+        telemetry.sample(t_req=t_req, now=float(win["now"][w]), lo=prev_req, hi=t_req)
+        prev_req = t_req
+    # final flush (the host tiers' _finish_windows): the drained end state
+    for idx, shell in enumerate(shells):
+        shell.preemption_count = int(out["preempt"][idx])
+        shell.rejection_count = int(out["reject"][idx])
+        shell.truncation_count = int(out["truncate"][idx])
+        shell.state.queue_depth = 0
+        shell.state.active = 0
+        shell.blocks_free[:] = spec.pools[idx].total_blocks
+    if controlled:
+        router.pools.set_thresholds(final_th)
+    telemetry.sample(t_req=n, now=t_end, lo=prev_req, hi=n)
 
 
 # ---------------------------------------------------------------------------

@@ -256,8 +256,14 @@ def test_serve_entry_point_on_cpu(capsys):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, and every ``benchmarks/port_*.py`` and
+    ``examples/port_*.py`` script (imported, not run), loads with jax and
+    the reference package blocked."""
+    root = SRC.parent
+    scripts = sorted(root.glob("benchmarks/port_*.py")) + sorted(root.glob("examples/port_*.py"))
+    assert len(scripts) >= 12
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
         "import repro_torch\n"
@@ -267,15 +273,22 @@ def test_port_imports_without_jax():
         "from repro_torch.sim.torch_engine import run_fleet_torch\n"
         "from repro_torch.traces import generate_trace_columns\n"
         "from repro_torch.kernels.sim_decode import decode_advance\n"
+        "from repro_torch.core import *\n"
+        "for path in sys.argv[1:]:\n"
+        "    if '/benchmarks/' in path:\n"
+        "        importlib.import_module('benchmarks.' + path.rsplit('/', 1)[1][:-3])\n"
+        "    else:\n"
+        "        spec = importlib.util.spec_from_file_location(path.rsplit('/', 1)[1][:-3], path)\n"
+        "        spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro')"
         " and sys.modules[n] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
-        [sys.executable, "-c", code],
-        capture_output=True, text=True, timeout=120,
-        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"},
+        [sys.executable, "-c", code, *map(str, scripts)],
+        capture_output=True, text=True, timeout=120, cwd=root,
+        env={"PYTHONPATH": f"{SRC}:{root}", "PATH": "/usr/bin:/bin"},
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"

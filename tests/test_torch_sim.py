@@ -412,11 +412,17 @@ class TestTorchTierRefuses:
                        telemetry=TelemetryConfig(window=64, events=True))
 
     def test_windowed_telemetry(self):
+        """Windowed telemetry (no events) is no longer refused: it runs on
+        the CPU and samples every 64 dispatched requests plus the final
+        flush (``tests/test_torch_telemetry.py`` holds its columns)."""
         from repro_torch.obs import TelemetryConfig
 
-        with pytest.raises(NotImplementedError, match="telemetry"):
-            T.FleetSim({"p": (self.CFG, 2)}, dyadic(T), backend="torch", device="cpu",
-                       telemetry=TelemetryConfig(window=64, events=False))
+        trace = poisson_trace(Tcore, 200, 200.0, 5, l_in=(16, 1200), l_out=(1, 100))
+        sim = T.FleetSim({"p": (self.CFG, 2)}, dyadic(T), backend="torch", device="cpu",
+                         telemetry=TelemetryConfig(window=64, events=False))
+        tel = sim.run(trace).telemetry
+        assert tel is sim.telemetry and tel.num_samples == 200 // 64 + 1
+        assert list(tel.column("t_req")) == [64, 128, 192, 200]
 
     def test_cuda_without_a_gpu(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
