@@ -45,6 +45,25 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    steps, each slot's logits held against a forward (``[moe-scout]``). The
    kernel phase (2) adds flash and paged at both head layouts (paged at
    qwen3's on both pools, scout's on the short pool it decodes in);
+5c. the rest of the model stack at full width and depth, random bf16
+   weights from seed 0: xlstm-350m (21 mLSTM and 3 sLSTM blocks, an f32
+   state of 88 MB a slot and no KV cache) serves the same 16-request draw
+   through the two pools (``[serve-xlstm]``; its path runs none of the
+   port's kernels, and a served prompt must be longer than 128 and not a
+   multiple of it, which the reference's mLSTM refuses), is profiled as
+   above with 0 host syncs required inside the decode step
+   (``[profile-xlstm]``), and its decode-step logits are held against a
+   forward with the mLSTM's ``w_q``/``w_k`` and the sLSTM's gate
+   projections tempered (``[logits-xlstm]``); qwen2-vl-7b (``[vlm]``: M-RoPE
+   over a 16-wide patch grid, GQA group 7) and musicgen-medium (``[audio]``:
+   a 256-position conditioning memory, cross-attention, four codebook
+   heads), which take embeddings and so are not served by the engine,
+   prefill two sequences (256 and 200 positions) into the port's
+   ``SlotKVCache`` and decode 8 steps, the launch counters set to 0 just
+   before and read just after (flash and paged must run), every step's
+   logits held against a forward. The kernel phase (2) adds flash and
+   paged at these layouts: G 7, D 64 causal, D 64 non-causal with 200
+   queries against 256 keys, and the cross cache with every position valid;
 6. the fleet DES (``FleetSim(backend="torch", device="cuda")``) on the
    paper's Table-2 fleet: an Azure trace at 1,000 req/s (seed 0),
    B_short 8192, the A100/Llama-3-70B timing model, short pool c_max 8192
@@ -100,7 +119,8 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    kernels' JSON line (each entry carries the timing floor; flash and paged
    entries their variant or split count, the SSD scan its P split and CTA
    count; flash and paged also at the MoE family's head layouts, ``_g16``
-   on the qwen3 serve's path, ``_g5`` on the scout run's;
+   on the qwen3 serve's path, ``_g5`` on the scout run's; ``_g7`` on the
+   qwen2-vl run's, ``_d64`` and ``_cross`` on the musicgen run's;
    ``sim_decode_telemetry`` with the telemetry run's launches), the card's name
    and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -159,7 +179,12 @@ from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.transformer import quantize_kv  # noqa: E402
 from repro_torch.obs import TelemetryConfig, validate_telemetry  # noqa: E402
 from repro_torch.obs.validate import check_window_deltas  # noqa: E402
-from repro_torch.serving import ServeRequest, ServingEngine, TwoPoolServer  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    ServeRequest,
+    ServingEngine,
+    SlotKVCache,
+    TwoPoolServer,
+)
 from repro_torch.sim import (  # noqa: E402
     A100_LLAMA3_70B,
     PAPER_SLO,
@@ -215,6 +240,12 @@ MOE, SCOUT = "qwen3-235b-a22b", "llama4-scout-17b-a16e"
 MOE_LAYERS = {MOE: 4, SCOUT: 2}
 #: Decode steps of the scout run (after the 8 slots' prefills).
 SCOUT_STEPS = 16
+#: The xLSTM (O(1) decode state, no KV cache), served at full width and
+#: depth; the vlm and audio stacks (embeddings frontend), which the engine
+#: does not serve, run prefill and decode through the port's slot cache.
+XLSTM, VLM, AUDIO = "xlstm-350m", "qwen2-vl-7b", "musicgen-medium"
+#: ``[vlm]`` / ``[audio]``: sequences, prompt length and decode steps.
+EMBED_RUN = {VLM: dict(seqs=2, prompt=256, steps=8), AUDIO: dict(seqs=2, prompt=200, steps=8)}
 SERVE = dict(
     requests=16, short_cmax=512, long_cmax=2048,
     short_slots=8, long_slots=2, seed=0, full_width=True,
@@ -225,12 +256,13 @@ COUNTERS = {"flash_attention": flash_attention, "paged_attention": paged_attenti
 #: Kernels per decode step (8 busy slots) that the profiled steps may not
 #: exceed: the counts the served paths had before the attention kernels
 #: were redesigned (the split combines inside the paged launch); the MoE
-#: path's is its first reading on the card (qwen3-235b-a22b, 4 layers).
+#: path's and the xLSTM's are their first readings on the card
+#: (qwen3-235b-a22b, 4 layers; xlstm-350m, 24 blocks).
 MAX_KERNELS_PER_STEP = {"profile": 1665, "profile-int8": 2081, "profile-hybrid": 3910,
-                        "profile-moe": 426}
+                        "profile-moe": 426, "profile-xlstm": 1304}
 #: Profiles whose decode step must make no host sync (the MoE routing reads
-#: no per-expert count on the host).
-SYNC_FREE_PROFILES = ("profile-moe",)
+#: no per-expert count on the host; the xLSTM writes its state in place).
+SYNC_FREE_PROFILES = ("profile-moe", "profile-xlstm")
 #: The earlier design's device times (ms) at the JSON line's shapes, read
 #: on the same card model (NVIDIA H100 80GB HBM3, 700 W; PERF.md's table);
 #: printed on their own line, never in the kernels' JSON line.
@@ -376,12 +408,44 @@ def flash_phase(dev, flush, *, heads: tuple[int, int, int], lengths: tuple[int, 
     return rows
 
 
+def flash_cross_phase(dev, flush, *, heads: tuple[int, int, int], lq: int, lk: int,
+                      tag: str) -> dict:
+    """Full (non-causal) attention of ``lq`` queries against ``lk`` keys:
+    the cross-attention's prefill call, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    H, K, D = heads
+    q = torch.randn(1, H, lq, D, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, K, lk, D, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, K, lk, D, generator=gen, device=dev).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    err, ulps = check_close(out, flash_attention_plain(q, k, v, causal=False),
+                            f"flash {tag} Lq={lq} Lk={lk}")
+    nbytes = 2 * (2 * H * lq * D + 2 * K * lk * D)
+    bnd, by = bound_ms(nbytes, 4 * H * D * lq * lk)
+    row = dict(
+        L=lq, lk=lk, max_abs_err=err, variant=flash_mod.variant(D, q.dtype),
+        ms=time_ms(lambda: flash_attention(q, k, v, causal=False), flush=flush),
+        plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, causal=False), flush=flush),
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, enable_gqa=True),
+            flush=flush),
+        bound_ms=bnd, bound_by=by,
+    )
+    print(f"[flash] {tag} H={H} K={K} D={D} Lq={lq} Lk={lk} non-causal variant "
+          f"{row['variant']} err {err:.3g} (tol {KERNEL_TOL}), worst row {ulps:.3g} ulps (tol "
+          f"{ROW_ULPS}) kernel {row['ms']:.4f} ms plain {row['plain_ms']:.4f} ms sdpa "
+          f"{row['library_ms']:.4f} ms bound {bnd:.4f} ms ({by})", flush=True)
+    return row
+
+
 def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool = False,
-                pools: tuple = POOLS) -> dict:
+                pools: tuple = POOLS, full: bool = False) -> dict:
     """Decode over one layer's slot cache viewed as 16-token pages, at the
     serving pools' shapes (short: 8 slots x 512, long: 2 slots x 2048, and
     where asked the paper's long pool, 2 x 65,536), ragged lengths, plus a
-    poison check of the pages past each length.
+    poison check of the pages past each length. With ``full`` every
+    position of every slot is valid (a cross-attention cache).
     With ``int8`` the cache is quantized as the model quantizes it (int8
     values, one f16 scale per position and head); the yardstick is SDPA
     over the dequantized bf16 cache, the dequantization timed apart."""
@@ -393,6 +457,8 @@ def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool
         kc = torch.randn(slots, c_max, K, D, generator=gen, device=dev).to(torch.bfloat16)
         vc = torch.randn(slots, c_max, K, D, generator=gen, device=dev).to(torch.bfloat16)
         lengths = torch.randint(1, c_max + 1, (slots,), generator=gen, device=dev, dtype=torch.int32)
+        if full:
+            lengths.fill_(c_max)
         bt = ops.slot_block_table(slots, c_max, dev)
         scales: tuple = ()
         if int8:
@@ -698,14 +764,24 @@ def decode_vs_forward(model, params) -> dict:
     )
 
 
-def temper_attention(params: dict) -> None:
+TEMPERED = ("w_q", "w_k", "cross_w_q", "cross_w_k")
+SLSTM_GATES = ("w_z", "w_i", "w_f", "w_o")
+
+
+def temper_attention(params: dict, keys: tuple = TEMPERED) -> None:
     """Scales every ``w_q`` and ``w_k`` in the tree by 0.1, in place (the
     dense layers, the MoE family's dense and MoE blocks, the hybrid's shared
-    attention blocks)."""
+    attention blocks, musicgen's cross-attention, the xLSTM's mLSTM blocks),
+    and the xLSTM's sLSTM gate projections: the reference's fan-in rule
+    makes an sLSTM's gate preactivations (std ~16 at xlstm-350m's widths)
+    and an mLSTM's q·k as large as it makes attention's scores, and its
+    exponential gates and the mLSTM's normalizer, a signed sum near 0, turn
+    a bf16 rounding into a different state (a decode step 0.30 rel L2 off a
+    forward at full width untempered, 7e-5 in f32; the port on the CPU)."""
     for key, val in params.items():
         if isinstance(val, dict):
-            temper_attention(val)
-        elif key in ("w_q", "w_k"):
+            temper_attention(val, keys + SLSTM_GATES if key == "slstm" else keys)
+        elif key in keys:
             val.mul_(0.1)
 
 
@@ -824,6 +900,116 @@ def scout_phase(dev) -> dict:
     print(f"[moe-scout] worst rel L2 {worst:.4g} (tol {LOGITS_REL_TOL})", flush=True)
     if not worst <= LOGITS_REL_TOL:
         fail(f"moe-scout: decode logits differ from forward: rel L2 {worst} > {LOGITS_REL_TOL}")
+    return dict(launches=launches, rel_l2=worst, wall_s=wall)
+
+
+def serve_xlstm_phase() -> dict:
+    """xlstm-350m at full width and depth through the two pools on the
+    16-request draw, greedy. Its path runs no kernel of the port (no
+    attention); the gates are check_served's, and that a prompt longer than
+    128 that 128 does not divide was served (the reference's mLSTM refuses
+    those; the port pads its last chunk)."""
+    reset_counters()
+    result = serve(XLSTM, **SERVE, device="cuda")
+    out = check_served(result, XLSTM, (), "serve-xlstm")
+    ragged = [r.prompt_tokens for r in result["responses"]
+              if r.prompt_tokens > 128 and r.prompt_tokens % 128]
+    launches = {name: fn.launches for name, fn in COUNTERS.items()}
+    print(f"[serve-xlstm] prompts longer than 128 that 128 does not divide: {ragged}; "
+          f"state a slot {state_bytes(out['server']) / 1e6:.1f} MB; launches of the port's "
+          f"kernels (none on this path): {launches}", flush=True)
+    if not ragged:
+        fail("serve-xlstm: no served prompt longer than 128 that 128 does not divide")
+    return out
+
+
+def state_bytes(srv) -> float:
+    """Bytes of one slot's xLSTM decode state in the short pool's cache."""
+    eng = srv.short_engine
+    leaves = (*eng.cache.state["mlstm"], *eng.cache.state["slstm"])
+    return sum(t.numel() * t.element_size() for t in leaves) / eng.n_slots
+
+
+def embed_phase(dev, arch: str, tag: str) -> dict:
+    """A model of the embeddings frontend at full width and depth, bf16,
+    random weights from seed 0 with w_q/w_k (and cross_w_q/cross_w_k)
+    tempered as ``logits_check`` does: ``seqs`` sequences of ``prompt``
+    seeded embeddings (std 0.1, as the reference's ``make_batch``) each
+    prefilled and copied into a slot of the port's ``SlotKVCache``, then
+    ``steps`` decode steps of all slots, the launch counters set to 0 just
+    before and read just after (flash and paged must run); each step's
+    logits against a forward over the same embeddings. qwen2-vl's M-RoPE
+    positions: the prompt as a 16-wide patch grid (temporal = index, height
+    = index // 16, width = index % 16), then text at index on all three
+    streams; musicgen's memory: 256 seeded conditioning embeddings."""
+    run = EMBED_RUN[arch]
+    seqs, n, steps = run["seqs"], run["prompt"], run["steps"]
+    model = Model(get_config(arch))
+    cfg = model.cfg
+    params = model.init(0, device=dev)
+    temper_attention(params)
+    print(f"[{tag}] {arch}: full width and depth ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, H {cfg.n_heads} K {cfg.n_kv_heads} D {cfg.head_dim}); "
+          f"{model.param_bytes() / 1e9:.2f} GB of bf16 weights", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    total = n + steps
+    embeds = (torch.randn(seqs, total, cfg.d_model, generator=gen, device=dev) * 0.1).bfloat16()
+    extra = {}
+    if cfg.pos_type == "mrope":
+        idx = torch.arange(total, device=dev)
+        grid = torch.stack([idx, idx // 16, idx % 16])
+        grid[:, n:] = idx[n:]  # text after the patch grid
+        extra["positions"] = grid[:, None].expand(3, seqs, total).to(torch.int32)
+    if cfg.cross_attention:
+        extra["memory"] = (torch.randn(seqs, cfg.cross_mem_len, cfg.d_model, generator=gen,
+                                       device=dev) * 0.1).bfloat16()
+
+    def part(b: slice, cols: slice) -> dict:
+        out = {"embeds": embeds[b, cols]}
+        if "positions" in extra:
+            out["positions"] = extra["positions"][:, b, cols]
+        if "memory" in extra:
+            out["memory"] = extra["memory"][b]
+        return out
+
+    cache = SlotKVCache(model, SERVE["short_cmax"], seqs, device=dev)
+    reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(seqs):
+        _, state = model.prefill(params, part(slice(i, i + 1), slice(0, n)))
+        cache.insert_prefill(i, state)
+    got = []
+    for t in range(n, total):
+        step = part(slice(None), slice(t, t + 1))
+        step.pop("memory", None)  # decode reads the cross cache
+        step["index"] = torch.full((seqs,), t, dtype=torch.int32, device=dev)
+        logits, _ = model.decode_step(params, cache.state, step)
+        got.append(logits.float())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: COUNTERS[name].launches for name in ("flash_attention", "paged_attention")}
+    launches["flash_attention_tc"] = flash_attention.launches_tc
+    print(f"[{tag}] {seqs} prefills of {n} positions and {steps} decode steps of {seqs} slots "
+          f"in {wall:.3f} s; kernel launches: {launches}", flush=True)
+    if any(v == 0 for v in launches.values()):
+        fail(f"{tag}: a kernel of the path was never launched: {launches}")
+    ref, _ = model.forward(params, part(slice(None), slice(0, total)))
+    worst = 0.0
+    for j, logits in enumerate(got):
+        want = ref[:, n + j].float()
+        if not (torch.isfinite(logits).all() and torch.isfinite(want).all()):
+            fail(f"{tag}: non-finite logits at decode step {j}")
+        if logits.shape != want.shape:
+            fail(f"{tag}: decode logits {tuple(logits.shape)} against forward {tuple(want.shape)}")
+        for b in range(seqs):
+            rel = ((logits[b] - want[b]).norm() / want[b].norm()).item()
+            worst = max(worst, rel)
+    print(f"[{tag}] logits {tuple(got[0].shape)} a step; worst decode step vs forward rel L2 "
+          f"{worst:.4g} over {steps} steps x {seqs} slots (tol {LOGITS_REL_TOL}); last step "
+          f"argmax {got[-1].argmax(-1).tolist()} / {ref[:, -1].argmax(-1).tolist()}", flush=True)
+    if not worst <= LOGITS_REL_TOL:
+        fail(f"{tag}: decode logits differ from forward: rel L2 {worst} > {LOGITS_REL_TOL}")
     return dict(launches=launches, rel_l2=worst, wall_s=wall)
 
 
@@ -1316,6 +1502,80 @@ def tables_phase(dev, des: dict) -> dict:
     return dict(launches=launches)
 
 
+def embed_kernel_rows(dev, flush) -> dict:
+    """Flash and paged at the layouts the vlm and audio stacks give them:
+    qwen2-vl's GQA group of 7 (its 256-position prompt; the serving pools'
+    pages), musicgen's D 64 MHA (its 200-position prompt, causal, and the
+    prompt against its 256-position memory, non-causal; a decode slot cache
+    and the cross cache, every position valid)."""
+    vlm, audio = get_config(VLM), get_config(AUDIO)
+    vlm_heads = (vlm.n_heads, vlm.n_kv_heads, vlm.head_dim)
+    audio_heads = (audio.n_heads, audio.n_kv_heads, audio.head_dim)
+    n, mem = EMBED_RUN[AUDIO]["prompt"], audio.cross_mem_len
+    return dict(
+        flash_g7=flash_phase(dev, flush, heads=vlm_heads, lengths=(256,), tag=VLM),
+        paged_g7=paged_phase(dev, flush, heads=vlm_heads, tag=VLM),
+        flash_d64=flash_phase(dev, flush, heads=audio_heads, lengths=(n, 256), tag=AUDIO),
+        flash_cross=flash_cross_phase(dev, flush, heads=audio_heads, lq=n, lk=mem, tag=AUDIO),
+        paged_d64=paged_phase(dev, flush, heads=audio_heads, tag=AUDIO, pools=POOLS[:1]),
+        paged_cross=paged_phase(dev, flush, heads=audio_heads, tag=f"{AUDIO} cross",
+                                pools=(("cross", EMBED_RUN[AUDIO]["seqs"], mem),), full=True),
+    )
+
+
+def new_model_phases(dev, stamp) -> dict:
+    """``[serve-xlstm]`` with its profile and logits check, ``[vlm]`` and
+    ``[audio]``; each frees the card after it."""
+    xl = serve_xlstm_phase()
+    profile_decode(xl["server"], "profile-xlstm")
+    logits_check(xl["server"], "logits-xlstm")
+    del xl["server"]
+    stamp("xlstm serve")
+    runs = {}
+    for arch, tag in ((VLM, "vlm"), (AUDIO, "audio")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[arch] = embed_phase(dev, arch, tag)
+        stamp(tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def embed_entries(entry, rows: dict, runs: dict) -> list:
+    """The JSON line's rows of the vlm and audio paths (the audio path's
+    flash launches count its causal and its cross-attention calls
+    together)."""
+    flash_src, paged_src = "flash_attention.cu", "paged_attention.cu"
+    flash_rep = "src/repro/kernels/flash_attention.py:96"
+    paged_rep = "src/repro/kernels/paged_attention.py:96"
+    vlm_path = f"prefill and decode {VLM}, {EMBED_RUN[VLM]['seqs']} slots"
+    audio_path = f"prefill and decode {AUDIO}, {EMBED_RUN[AUDIO]['seqs']} slots"
+    vl, al = runs[VLM]["launches"], runs[AUDIO]["launches"]
+    n, mem = EMBED_RUN[AUDIO]["prompt"], get_config(AUDIO).cross_mem_len
+    out = [
+        entry("flash_attention_g7", flash_src, flash_rep, vlm_path, vl["flash_attention"],
+              rows["flash_g7"][256], "H=28 K=4 D=128 L=256"),
+        entry("paged_attention_g7", paged_src, paged_rep, vlm_path, vl["paged_attention"],
+              rows["paged_g7"]["short"], "8 slots x 512, H=28 K=4 D=128, bf16 pages"),
+        entry("flash_attention_d64", flash_src, flash_rep, audio_path, al["flash_attention"],
+              rows["flash_d64"][n], f"H=24 K=24 D=64 L={n}"),
+        entry("flash_attention_cross", flash_src, flash_rep, audio_path, al["flash_attention"],
+              rows["flash_cross"], f"H=24 K=24 D=64 Lq={n} Lk={mem}, non-causal"),
+        entry("paged_attention_d64", paged_src, paged_rep, audio_path, al["paged_attention"],
+              rows["paged_d64"]["short"], "8 slots x 512, H=24 K=24 D=64, bf16 pages"),
+        entry("paged_attention_cross", paged_src, paged_rep, audio_path, al["paged_attention"],
+              rows["paged_cross"]["cross"],
+              f"{EMBED_RUN[AUDIO]['seqs']} slots x {mem} cross cache, every position valid, "
+              f"H=24 K=24 D=64"),
+    ]
+    for k, row in zip(out, (rows["flash_g7"][256], rows["paged_g7"]["short"],
+                            rows["flash_d64"][n], rows["flash_cross"],
+                            rows["paged_d64"]["short"], rows["paged_cross"]["cross"])):
+        k.update({key: row[key] for key in ("variant", "splits") if key in row})
+    return out
+
+
 def sass_mma_counts() -> dict:
     """Each built library's counts of tensor-core instructions in its SASS:
     HGMMA (wgmma) and HMMA (mma.sync)."""
@@ -1386,6 +1646,7 @@ def main() -> None:
     flash_g5 = flash_phase(dev, flush, heads=scout_heads, lengths=(256,), tag=SCOUT)
     paged_g16 = paged_phase(dev, flush, heads=moe_heads, tag=MOE)
     paged_g5 = paged_phase(dev, flush, heads=scout_heads, tag=SCOUT, pools=POOLS[:1])
+    embed_rows = embed_kernel_rows(dev, flush)
     del flush
     stamp("build and kernel rows")
 
@@ -1422,6 +1683,7 @@ def main() -> None:
     stamp("scout decode")
     gc.collect()
     torch.cuda.empty_cache()
+    embed_runs = new_model_phases(dev, stamp)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     des = des_phase(dev, flush)
@@ -1488,6 +1750,7 @@ def main() -> None:
               scout["launches"]["paged_attention"], paged_g5["short"],
               "8 slots x 512, H=40 K=8 D=128, bf16 pages"),
     ]
+    kernels += embed_entries(entry, embed_rows, embed_runs)
     kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
     for k, row in zip(kernels[:6] + kernels[8:],
                       (flash_rows[256], flash80[256], paged_rows["short"], paged80["short"],

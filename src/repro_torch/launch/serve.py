@@ -3,11 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --requests 40
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-235b-a22b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --device cpu
 
-Builds a model (reduced widths unless ``--full-width``; the dense family,
-the MoE family or the zamba2 hybrid), a short pool and a long pool, routes a synthetic
-workload through Algorithm 1 with live EMA calibration, and prints
-per-pool outcomes and router statistics. Runs on the GPU; ``--device cpu``
+Builds a model (reduced widths unless ``--full-width``; any token-frontend
+config: the dense family, the MoE family, the zamba2 hybrid or the xLSTM),
+a short pool and a long pool, routes a synthetic workload through
+Algorithm 1 with live EMA calibration, and prints per-pool outcomes and
+router statistics. Runs on the GPU; ``--device cpu``
 runs the plain PyTorch versions of the kernels. Counterpart of
 ``repro.launch.serve``; :func:`run_workload` drives any ``TwoPoolServer``
 (an int8-KV model, say) with the same draw.
@@ -118,8 +120,9 @@ def main() -> None:
     ap.add_argument("--arch", default="yi-6b",
                     help="a config of the dense family (yi-6b, granite-3-8b, granite-34b, "
                          "gemma-2b, llama3-70b), the MoE family (qwen3-235b-a22b, "
-                         "llama4-scout-17b-a16e, llama4-maverick-400b-a17b) or the hybrid "
-                         "(zamba2-2.7b)")
+                         "llama4-scout-17b-a16e, llama4-maverick-400b-a17b), the hybrid "
+                         "(zamba2-2.7b) or the xLSTM (xlstm-350m); qwen2-vl-7b and "
+                         "musicgen-medium take embeddings, which the engine does not serve")
     ap.add_argument("--requests", type=int, default=40)
     ap.add_argument("--short-cmax", type=int, default=128)
     ap.add_argument("--long-cmax", type=int, default=512)

@@ -1,4 +1,5 @@
-"""Model stack of the port (dense, MoE and hybrid families)."""
+"""Model stack of the port (the dense, MoE, vlm, audio, hybrid and ssm
+families)."""
 
 from repro_torch.models.model_zoo import Model, get_model
 from repro_torch.models.params import ParamDef, init_params, params_from_numpy

@@ -29,3 +29,14 @@ def lm_logits(
 ) -> torch.Tensor:
     logits = hidden @ (head.t() if tied else head)
     return _mask_padded(logits, valid_vocab)
+
+
+def codebook_logits(
+    hidden: torch.Tensor,  # (B, L, D)
+    heads: torch.Tensor,  # (K, D, V)
+    *,
+    valid_vocab: Optional[int] = None,
+) -> torch.Tensor:
+    """MusicGen's multi-codebook heads: (B, L, D) x (K, D, V) → (B, L, K, V)."""
+    logits = torch.einsum("bld,kdv->blkv", hidden, heads)
+    return _mask_padded(logits, valid_vocab)

@@ -253,6 +253,6 @@ def init_cache(
     }
 
 
-def cache_batch_axes() -> dict:
+def cache_batch_axes(cfg: ArchConfig) -> dict:
     """The slot axis of each decode-state leaf."""
     return {"attn": (1, 1), "mamba": {"conv": 2, "ssd": 2}}

@@ -46,6 +46,26 @@ def rope_angles(
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_angles(
+    positions: torch.Tensor,  # (3, B, L): temporal / height / width streams
+    head_dim: int,
+    theta: float,
+    sections: tuple[int, ...],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """M-RoPE (Qwen2-VL): the rotary pairs are split into ``sections``, each
+    driven by its own position stream. Returns cos/sin (B, L, head_dim/2)
+    in f32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} must sum to {half}")
+    exponents = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exponents)
+    stream = [i for i, n in enumerate(sections) for _ in range(n)]  # each pair's stream
+    pos = positions[stream].movedim(0, -1).float()  # (B, L, half)
+    ang = pos * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Half-split rotary embedding; x (..., L, H, D), cos/sin (..., L, D/2)."""
     half = x.shape[-1] // 2

@@ -1,16 +1,16 @@
-"""Model facade (counterpart of ``repro.models.model_zoo``): the dense, MoE
-and hybrid families.
+"""Model facade (counterpart of ``repro.models.model_zoo``): every family
+the reference ships.
 
 ``Model(cfg, kv_dtype=..., moe_group=...)`` exposes ``init`` / ``forward``
 / ``prefill`` / ``decode_step`` / ``init_cache``, the slot axis of every
-decode-state leaf (``cache_batch_axes``) and the parameter counts
+decode-state leaf (``cache_batch_axes``), the inputs of a shape cell as
+meta tensors (``input_specs``) and the parameter counts
 (``active_param_count`` counts an MoE layer's top-k experts only);
-:func:`get_model` builds one by config name. The dense and MoE families
-(yi-6b, granite-3-8b, granite-34b, gemma-2b, llama3-70b; qwen3-235b-a22b,
-llama4-scout, llama4-maverick) run ``transformer``, the hybrid family
-(zamba2) ``hybrid``. Any other family raises ``NotImplementedError``: the
-reference's VLM, audio and xLSTM stacks are later slices of the port
-(ROADMAP.md, queue A, item A11).
+:func:`get_model` builds one by config name. The dense, MoE, vlm and audio
+families (yi-6b, granite-3-8b, granite-34b, gemma-2b, llama3-70b;
+qwen3-235b-a22b, llama4-scout, llama4-maverick; qwen2-vl-7b;
+musicgen-medium) run ``transformer``, the hybrid (zamba2) ``hybrid`` and
+the ssm family (xlstm-350m) ``xlstm_model``.
 """
 
 from __future__ import annotations
@@ -24,10 +24,15 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, transformer, xlstm_model
 from repro_torch.models.params import init_params, param_bytes, param_count
 
 KV_DTYPES = ("bf16", "int8")
+#: Families whose decode state is a tree of recurrent states (and, for the
+#: hybrid, a bf16 KV cache): their module and parameter declarations. The
+#: rest run ``transformer``.
+_STATE_FAMILIES = {"hybrid": (hybrid, hybrid.hybrid_defs),
+                   "ssm": (xlstm_model, xlstm_model.xlstm_defs)}
 
 
 @dataclasses.dataclass
@@ -44,14 +49,15 @@ class Model:
     def __post_init__(self) -> None:
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {self.kv_dtype!r} not in {KV_DTYPES}")
-        if self.cfg.family == "hybrid":
+        family = self.cfg.family
+        if family in _STATE_FAMILIES:
             if self.kv_dtype != "bf16":
-                raise NotImplementedError("the hybrid family keeps a bf16 KV cache")
-            self._mod, self._kw = hybrid, {}
-            self.defs = hybrid.hybrid_defs(self.cfg)
+                raise NotImplementedError(f"the {family} family keeps no int8 KV cache")
+            self._mod, defs = _STATE_FAMILIES[family]
+            self._kw, self.defs = {}, defs(self.cfg)
         else:
             self._mod, self._kw = transformer, {"kv_dtype": self.kv_dtype}
-            self.defs = transformer.transformer_defs(self.cfg)  # raises for the rest
+            self.defs = transformer.transformer_defs(self.cfg)  # raises for unknown families
 
     # -- parameters ----------------------------------------------------------
     def init(self, seed: int = 0, *, device: str | torch.device = "cuda") -> dict:
@@ -98,7 +104,8 @@ class Model:
         """Zero decode state for a decode cell (``global_batch`` slots of
         ``seq_len`` positions) of a model whose activations are
         ``act_dtype``, laid out by the family's module
-        (``transformer.init_cache``, ``hybrid.init_cache``)."""
+        (``transformer.init_cache``, ``hybrid.init_cache``,
+        ``xlstm_model.init_cache``)."""
         return self._mod.init_cache(
             self.cfg, cell.global_batch, cell.seq_len, act_dtype=act_dtype,
             device=resolve_device(device), **self._kw,
@@ -107,7 +114,36 @@ class Model:
     def cache_batch_axes(self) -> Any:
         """The slot axis of each decode-state leaf, as a tree shaped like
         :meth:`init_cache`'s (the reference's ``SlotKVCache.batch_axes``)."""
-        return self._mod.cache_batch_axes(**self._kw)
+        return self._mod.cache_batch_axes(self.cfg, **self._kw)
+
+    def input_specs(self, cell: ShapeCell) -> dict:
+        """The model's inputs for one shape cell, as tensors on the meta
+        device with the reference's shapes and dtypes (its ``input_specs``
+        without the logical axes): ``tokens`` or ``embeds``, M-RoPE's
+        ``positions``, cross-attention's ``memory``, and ``labels`` (train)
+        or a scalar ``index`` (decode)."""
+        cfg = self.cfg
+        b = cell.global_batch
+        n = 1 if cell.kind == "decode" else cell.seq_len
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        specs = {}
+        if cfg.frontend == "tokens":
+            specs["tokens"] = meta((b, n), torch.int32)
+        else:
+            specs["embeds"] = meta((b, n, cfg.d_model), torch.bfloat16)
+        if cfg.pos_type == "mrope":
+            specs["positions"] = meta((3, b, n), torch.int32)
+        if cfg.cross_attention:
+            specs["memory"] = meta((b, cfg.cross_mem_len, cfg.d_model), torch.bfloat16)
+        if cell.kind == "train":
+            labels = (b, n, cfg.n_codebooks) if cfg.n_codebooks > 0 else (b, n)
+            specs["labels"] = meta(labels, torch.int32)
+        elif cell.kind == "decode":
+            specs["index"] = meta((), torch.int32)
+        return specs
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,8 +5,9 @@ per active slot per iteration, prompt prefill on admission. Where the
 reference ``vmap``s a single-sequence decode over the slot axis, the port
 runs one decode over an explicit slot batch dimension with a per-slot
 ``index`` tensor, so every slot writes its KV at its own position (both
-families). Dense prompts are right-padded to ``prompt_bucket`` tokens;
-hybrid prompts go unpadded, since pad tokens would enter the SSM state.
+families). Dense and MoE prompts are right-padded to ``prompt_bucket``
+tokens; hybrid and xLSTM (ssm) prompts go unpadded, since pad tokens would
+enter the recurrent state (the reference pads the same families).
 
 Every decode step runs all ``n_slots`` rows, free ones included (their
 token and index are stale and their outputs ignored), as the reference
@@ -113,7 +114,7 @@ class ServingEngine:
             req = self.queue.popleft()
             slot = self.alloc.alloc()
             n = len(req.tokens)
-            if self.model.cfg.family == "hybrid":
+            if self.model.cfg.family in ("hybrid", "ssm"):
                 batch = {"tokens": torch.tensor([req.tokens], device=self.device)}
             else:
                 pad = bucket_length(n, multiple=self.prompt_bucket, max_len=self.c_max)

@@ -6,9 +6,13 @@ of tensors (:meth:`Model.init_cache`), each with its slot axis where
 :meth:`Model.cache_batch_axes` says (the reference's per-leaf
 ``batch_axes``): for the dense family ``(k, v)`` or, with an int8 cache,
 ``(k, v, k_scale, v_scale)``, each ``(n_layers, n_slots, c_max, K, ·)``;
-for the hybrid its shared attention's k/v and its Mamba blocks' conv and
-SSD states. A prefill result is copied into its slot in place. Each
-layer's attention slice is the page pool of the paged decode kernel
+with cross-attention (musicgen) ``(cross_k, cross_v)`` after them, each
+``(n_layers, n_slots, cross_mem_len, K, D)``; for the hybrid its shared
+attention's k/v and its Mamba blocks' conv and SSD states; for xLSTM the
+mLSTM ``(C, n)`` (slot axis 2) and sLSTM ``(c, n, h, m)`` (slot axis 1),
+f32 and of no sequence length. A prefill result is copied into its slot
+in place: an attention cache's first L positions, any other leaf whole.
+Each layer's attention slice is the page pool of the paged decode kernel
 (``kernels/ops.slot_decode_attention``).
 """
 

@@ -66,6 +66,22 @@ FLASH_CASES = [
     (1, 256, 64, 4, 128, torch.bfloat16, 2e-2),  # qwen3-235b widths
     (1, 65, 40, 8, 128, torch.bfloat16, 2e-2),  # llama4 widths, ragged length
     (2, 200, 16, 1, 64, torch.float32, 2e-5),  # G = 16 on the CUDA cores
+    # qwen2-vl-7b's GQA group of 7 (H 28, K 4) and musicgen-medium's MHA at D 64
+    (1, 256, 28, 4, 128, torch.bfloat16, 2e-2),
+    (2, 65, 28, 4, 128, torch.bfloat16, 2e-2),
+    (1, 256, 24, 24, 64, torch.bfloat16, 2e-2),
+]
+
+# Full attention with a kv length other than q's (musicgen's cross-attention
+# to a 256-position memory at prefill): kv tiles ragged against 64, shorter
+# and longer than q, one query.
+FLASH_CROSS_CASES = [
+    # (B, Lq, Lk, H, K, D, dtype, tol)
+    (2, 200, 256, 24, 24, 64, torch.bfloat16, 2e-2),  # musicgen prefill
+    (1, 1, 256, 24, 24, 64, torch.bfloat16, 2e-2),
+    (1, 65, 16, 24, 24, 64, torch.bfloat16, 2e-2),  # the reduced memory length
+    (1, 130, 300, 28, 4, 128, torch.bfloat16, 2e-2),  # G = 7, both ragged
+    (2, 200, 100, 8, 2, 64, torch.float32, 2e-5),  # the CUDA-core variant
 ]
 
 # Lengths: None draws them at random in [1, pps * page]. The kernel splits
@@ -97,6 +113,13 @@ PAGED_CASES = [
     (5, 40, 8, 128, 16, 8, torch.bfloat16, torch.bfloat16, 2e-2, [1, 16, 64, 65, 128]),
     # qwen3's long pool (2 slots x 2048): 8 splits on 132 SMs
     (2, 64, 4, 128, 16, 128, torch.bfloat16, torch.bfloat16, 2e-2, [2048, 1990]),
+    # qwen2-vl-7b's G = 7 (7 of a CTA's 8 head lanes), short and long pool
+    (8, 28, 4, 128, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, None),
+    (2, 28, 4, 128, 16, 128, torch.bfloat16, torch.bfloat16, 2e-2, [2048, 300]),
+    # musicgen-medium: self-attention at D 64, G 1; the cross cache (every
+    # one of its 256 memory positions valid)
+    (8, 24, 24, 64, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, None),
+    (8, 24, 24, 64, 16, 16, torch.bfloat16, torch.bfloat16, 2e-2, [256] * 8),
 ]
 
 INT8_CASES = [
@@ -175,6 +198,28 @@ def test_flash_kernel_matches_plain(cuda, case, causal):
     om = ops.flash_attention(qm, km, vm, causal=causal)
     assert om.is_contiguous() and om.shape == (B, L, H, D)
     assert torch.equal(om, out.transpose(1, 2))
+
+
+@pytest.mark.parametrize("case", FLASH_CROSS_CASES)
+def test_flash_kernel_full_attention_other_kv_length(cuda, case):
+    """Non-causal attention with Lq != Lk against the plain version, head-
+    major and through the model layout (the cross-attention's call); causal
+    attention with Lq != Lk is refused."""
+    B, Lq, Lk, H, K, D, dtype, tol = case
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, (B, H, Lq, D), dtype, cuda)
+    k = _randn(gen, (B, K, Lk, D), dtype, cuda)
+    v = _randn(gen, (B, K, Lk, D), dtype, cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.shape == q.shape
+    expect = flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(out.float(), expect.float(), atol=tol, rtol=0)
+    qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    assert torch.equal(ops.flash_attention(qm, km, vm, causal=False), out.transpose(1, 2))
+    with pytest.raises(ValueError, match="Lq == Lk"):
+        flash_attention(q, k, v, causal=True)
 
 
 def _lengths(gen, lengths, B, mapped, device):

@@ -51,21 +51,35 @@ def bf16_tol(ref) -> float:
     return BF16_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
 
 
-def _temper(tree: dict) -> dict:
-    """``tree`` with every ``w_q``/``w_k`` in it, at any depth (the MoE
+TEMPERED = ("w_q", "w_k", "cross_w_q", "cross_w_k")
+#: The xLSTM's sLSTM gate projections, (d, heads, head_dim) like w_q.
+SLSTM_GATES = ("w_z", "w_i", "w_f", "w_o")
+
+
+def _temper(tree: dict, keys: tuple = TEMPERED) -> dict:
+    """``tree`` with every leaf named in ``keys``, at any depth (the MoE
     family nests its layers under ``moe_block`` / ``dense_block``), scaled
-    by 0.1."""
+    by 0.1: by default every ``w_q``/``w_k`` and musicgen's
+    cross-attention ``cross_w_q``/``cross_w_k``."""
     return {
-        k: _temper(v) if isinstance(v, dict)
-        else (v.astype(jnp.float32) * 0.1).astype(v.dtype) if k in ("w_q", "w_k") else v
+        k: _temper(v, keys) if isinstance(v, dict)
+        else (v.astype(jnp.float32) * 0.1).astype(v.dtype) if k in keys else v
         for k, v in tree.items()
     }
 
 
 @functools.lru_cache(maxsize=None)
 def _tempered_init(arch: str, overrides: tuple) -> dict:
+    """The attention families' ``blocks`` tempered. The xLSTM has no
+    attention, but the same fan-in rule makes its mLSTM's q·k and its
+    sLSTM's gate preactivations large (``tests/test_torch_xlstm.py``
+    says what that does), so its mLSTM ``w_q``/``w_k`` and its sLSTM gate
+    projections are tempered alike."""
     cfg = dataclasses.replace(jax_config(arch).reduced(), **dict(overrides))
     params = JaxModel(cfg).init(jax.random.key(0))
+    if "slstm" in params:
+        return {**params, "mlstm": _temper(params["mlstm"]),
+                "slstm": _temper(params["slstm"], SLSTM_GATES)}
     return {**params, "blocks": _temper(params["blocks"])}
 
 
@@ -270,14 +284,13 @@ def test_init_cache_is_bf16_slot_layout():
 
 
 def test_other_families_raise():
-    """The dense, MoE and hybrid families construct; vlm, audio and ssm
-    raise, naming the roadmap item."""
+    """Every family the reference ships constructs (dense, MoE, vlm, audio,
+    hybrid, ssm); a family the reference does not know raises, as the
+    reference's ``Model`` does."""
     for cfg in REGISTRY.values():
-        if cfg.family in ("dense", "moe", "hybrid"):
-            Model(cfg.reduced())
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                Model(cfg.reduced())
+        Model(cfg.reduced())
+    with pytest.raises(ValueError, match="family"):
+        Model(dataclasses.replace(get_config("yi-6b").reduced(), family="rnn"))
 
 
 def test_entry_points_raise_without_gpu():

@@ -366,7 +366,7 @@ def test_forward_matches_reference_bf16_layer_by_layer(case):
     jcfg, tcfg = jm.cfg, tm.cfg
     jp, tp = carried(case, jnp.bfloat16)
     toks = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 64))
-    x = ttransformer._embed_input(tp, tcfg, torch.from_numpy(toks))
+    x = ttransformer._embed_input(tp, tcfg, {"tokens": torch.from_numpy(toks)})
     pos = torch.arange(64).expand(2, 64)
     cos, sin = rope_angles(pos, tcfg.head_dim, tcfg.rope_theta)
     jcos, jsin = jtransformer._positions_full({"tokens": jnp.asarray(toks)}, jcfg, 64)
@@ -599,13 +599,8 @@ def test_params_mirror_reference_layout(arch):
 
 @pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_get_model_and_active_params_match_reference(name):
-    """Every config: the port's get_model gives the reference's counts, and
-    raises for the families it does not cover yet."""
+    """Every config: the port's get_model gives the reference's counts."""
     ref = jax_get_model(name)
-    if ref.cfg.family in ("vlm", "audio", "ssm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name)
-        return
     port = get_model(name)
     assert port is get_model(name) and port.cfg.name == name
     assert port.param_count() == ref.param_count()
