@@ -18,6 +18,21 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    variant and paged's split count printed, and times the kernel, the
    plain version and, where one exists, one PyTorch call computing the same
    function as a yardstick (the port never calls it);
+2b. the flash kernel's backward (``[flash-bwd]``): the forward's
+   log-sum-exp and ``csrc/flash_attention_bwd.cu`` against their plain
+   versions at yi-6b's heads (B 2, L 1024 and 2048), qwen3's G 16, zamba2's
+   D 80, musicgen's non-causal 200 x 256 and one f32 shape; two launches
+   bit for bit; the kernel, the plain backward and SDPA's backward timed
+   (the library must have HMMA). Then training (``[train]``): 12 AdamW
+   steps of yi-6b at full width with 8 of its 32 layers (B 2 x L 2048,
+   every layer rematerialized), the losses finite and falling, exactly two
+   flash forwards and one tensor-core backward a layer and step (counters
+   set to 0 just before, read just after), step time, tokens/s, peak
+   memory and one profiled step's kernels and busy share;
+   ``[train-grad]``: the loss and every gradient leaf at 2 layers against
+   autograd through the plain attention; ``[train-restart]``:
+   ``launch.train.train`` on reduced yi-6b with an injected failure,
+   resumed at its checkpoint;
 3. serves 16 requests through the port's ``TwoPoolServer`` on full-width
    yi-6b (random bf16 weights from a seed): short pool c_max 512 with 8
    slots, long pool c_max 2048 with 2 slots. The kernels' launch counters
@@ -121,7 +136,8 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    count; flash and paged also at the MoE family's head layouts, ``_g16``
    on the qwen3 serve's path, ``_g5`` on the scout run's; ``_g7`` on the
    qwen2-vl run's, ``_d64`` and ``_cross`` on the musicgen run's;
-   ``sim_decode_telemetry`` with the telemetry run's launches), the card's name
+   ``sim_decode_telemetry`` with the telemetry run's launches;
+   ``flash_attention_bwd`` with the ``[train]`` run's launches), the card's name
    and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -156,10 +172,14 @@ from repro_torch.core.pools import (  # noqa: E402
     homogeneous_pool,
     n_seq_for_cmax,
 )
+from repro_torch.distributed.fault import SimulatedFailure  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    backward_variant,
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
     flash_attention_plain,
 )
 from repro_torch.kernels.paged_attention import (  # noqa: E402
@@ -175,6 +195,7 @@ from repro_torch.kernels.sim_decode import (  # noqa: E402
 )
 from repro_torch.kernels.ssd_scan import P_TILE, ssd_scan, ssd_scan_plain  # noqa: E402
 from repro_torch.launch.serve import run_workload, serve  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models.transformer import quantize_kv  # noqa: E402
 from repro_torch.obs import TelemetryConfig, validate_telemetry  # noqa: E402
@@ -195,6 +216,14 @@ from repro_torch.sim import (  # noqa: E402
 from repro_torch.sim import torch_engine  # noqa: E402
 from repro_torch.sim.fleet import record_columns, same_records  # noqa: E402
 from repro_torch.traces import TraceSpec, generate_trace_columns  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    DataConfig,
+    SyntheticLM,
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+)
+from repro_torch.training.tree import leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor-core
 # rates, the float32 rate outside the tensor cores, and HBM3.
@@ -312,6 +341,39 @@ TELEMETRY = dict(window=512, cross=2000, cut=0.2, control_window=100)
 # trace (seed 0), as the reference's ``plan_fleet`` sizes them.
 TABLE2_AZURE = (72, 232, 364)
 TABLE2_DES = (72, 224, 355)
+# The flash backward's rows (``[flash-bwd]``): (tag, B, H, K, D, Lq, Lk,
+# causal, dtype). yi-6b's heads at the training phase's B 2 and L 2048 and
+# at L 1024, qwen3's GQA group of 16, zamba2's D 80 MHA, musicgen's D 64
+# cross-attention (200 queries, 256 memory positions, non-causal), and one
+# f32 shape (the CUDA-core forward).
+FLASH_BWD = (
+    ("yi-6b", 2, 32, 4, 128, 1024, 1024, True, torch.bfloat16),
+    ("yi-6b", 2, 32, 4, 128, 2048, 2048, True, torch.bfloat16),
+    ("qwen3-235b-a22b", 1, 64, 4, 128, 1024, 1024, True, torch.bfloat16),
+    ("zamba2-2.7b", 1, 32, 32, 80, 256, 256, True, torch.bfloat16),
+    ("musicgen-medium", 2, 24, 24, 64, 200, 256, False, torch.bfloat16),
+    ("f32", 1, 8, 2, 64, 512, 512, True, torch.float32),
+)
+# The forward's log-sum-exp against the plain version's (f32 both; the
+# kernel sums exp2 of scaled scores in another order).
+LSE_TOL = 1e-4
+# The f32 backward row: the kernel and the plain version sum the same f32
+# products in other orders (relative to the largest gradient).
+F32_GRAD_TOL = 2e-5
+# ``[train]``: yi-6b at full width, ``layers`` of its 32 (through
+# ``dataclasses.replace``, as the MoE phases cut depth), B x L tokens from
+# ``SyntheticLM``, AdamW at ``peak_lr`` with the launcher's warm-up, every
+# layer rematerialized. ``[train-grad]``: the same widths at ``grad_layers``
+# layers and ``grad_batch`` x ``grad_seq``; ``[train-restart]``: the
+# launcher on reduced yi-6b.
+TRAIN = dict(layers=8, batch=2, seq=2048, steps=12, peak_lr=1e-3, remat="full",
+             grad_layers=2, grad_batch=1, grad_seq=1024,
+             restart=dict(steps=8, seq_len=128, global_batch=4, ckpt_every=2, fail_at=5))
+# Loss and every gradient leaf of the kernels' path against autograd through
+# the plain attention, both bf16 (relative L2 a leaf): the two round P, dS
+# and the outputs at different points, and every bf16 rounding is 2**-8
+# relative; two layers keep that within a percent or two.
+GRAD_REL_TOL = 2e-2
 
 
 def fail(msg: str) -> None:
@@ -1576,6 +1638,264 @@ def embed_entries(entry, rows: dict, runs: dict) -> list:
     return out
 
 
+def check_grad(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple[float, float]:
+    """Holds a gradient to its plain version: f32 within F32_GRAD_TOL of the
+    largest value; bf16 within ROW_ULPS a row and KERNEL_TOL, 1.28 ulps of
+    values in [2, 4), doubled for each power of two the tensor's largest
+    value lies past that (dk and dv sum a kv head's G query heads and reach
+    past 4), so 1.28 ulps at the largest value. A row's scale is floored
+    at 2**-8 of the tensor's largest value: a gradient row can cancel to ~0
+    (causal query 0's dq is exactly 0) and then carries the f32 rounding of
+    the terms it cancels, not of its own size; for unit-scale inputs the
+    floor is at least 2**-10 (at L = 1 every dq is such a residue).
+    Returns (max abs error, worst row's ulps)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    big = ref.abs().max().item()
+    top = ref.abs().amax(-1).clamp_min(max(big * 2.0**-8, 2.0**-10))
+    ulps = (err.amax(-1) / torch.exp2(torch.floor(torch.log2(top)) - 7)).max().item()
+    worst = err.max().item()
+    if out.dtype == torch.float32:
+        if worst > F32_GRAD_TOL * max(1.0, big):
+            fail(f"{what}: max |kernel - plain| {worst} (limit {F32_GRAD_TOL} x {big})")
+        return worst, ulps
+    limit = KERNEL_TOL * 2.0 ** max(0, math.floor(math.log2(big)) - 1)
+    if not (worst <= limit and ulps <= ROW_ULPS):
+        fail(f"{what}: max |kernel - plain| {worst} (limit {limit}, largest |plain| {big}), "
+             f"worst row {ulps:.3g} bf16 ulps (limit {ROW_ULPS})")
+    return worst, ulps
+
+
+def flash_bwd_phase(dev, flush) -> dict:
+    """``[flash-bwd]``: the forward's log-sum-exp and the backward kernel
+    against their plain versions at the FLASH_BWD shapes, two launches
+    bit for bit, and the times of the kernel, the plain backward and
+    SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention`` on a retained graph)."""
+    rows = {}
+    for tag, B, H, K, D, lq, lk, causal, dtype in FLASH_BWD:
+        gen = torch.Generator(device=dev).manual_seed(11)
+        q = torch.randn(B, H, lq, D, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, K, lk, D, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, K, lk, D, generator=gen, device=dev).to(dtype)
+        do = torch.randn(B, H, lq, D, generator=gen, device=dev).to(dtype)
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        _, lse_ref = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        lse_err = (lse - lse_ref).abs().max().item()
+        name = f"flash-bwd {tag} B={B} H={H} K={K} D={D} Lq={lq} Lk={lk}"
+        if not lse_err <= LSE_TOL:
+            fail(f"{name}: lse off by {lse_err} (limit {LSE_TOL})")
+        grads = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+        again = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            fail(f"{name}: two launches differ")
+        refs = flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal)
+        errs = [check_grad(g, r, f"{name} d{n}") for n, g, r in zip("qkv", grads, refs)]
+        del refs
+        size = q.element_size()
+        nbytes = size * (4 * B * H * lq * D + 4 * B * K * lk * D)  # q o dO dq; k v dk dv
+        flops = 2.5 * 4 * B * H * lq * lk * D * (0.5 if causal else 1.0)
+        bnd, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                           else PEAK_F32_FLOPS)
+        args = (q, k, v, out, lse, do)
+        ms = time_ms(lambda: flash_attention_backward(*args, causal=causal), flush=flush)
+        plain_ms = time_ms(lambda: flash_attention_backward_plain(*args, causal=causal),
+                           flush=flush)
+        lq_, lk_, lv_ = (t.detach().requires_grad_() for t in (q, k, v))
+        o_lib = torch.nn.functional.scaled_dot_product_attention(
+            lq_, lk_, lv_, is_causal=causal, enable_gqa=True)
+        library_ms = time_ms(lambda: torch.autograd.grad(o_lib, (lq_, lk_, lv_), do,
+                                                         retain_graph=True), flush=flush)
+        del o_lib
+        row = dict(B=B, H=H, K=K, D=D, L=lq, lk=lk, causal=causal, lse_err=lse_err,
+                   variant=backward_variant(D, dtype),
+                   max_abs_err=max(e for e, _ in errs), worst_row_ulps=max(u for _, u in errs),
+                   ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd, bound_by=by)
+        rows[(tag, lq)] = row
+        print(f"[flash-bwd] {tag} B={B} H={H} K={K} D={D} Lq={lq} Lk={lk} "
+              f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]} variant {row['variant']}: "
+              f"lse err {lse_err:.3g} "
+              f"(tol {LSE_TOL}); dq/dk/dv err {[f'{e:.3g}' for e, _ in errs]}, worst row "
+              f"{row['worst_row_ulps']:.3g} ulps; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+              f"sdpa-bwd {library_ms:.4f} ms bound {bnd:.4f} ms ({by}); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    return rows
+
+
+def dense_cut(layers: int):
+    """yi-6b at full width and ``layers`` of its 32 layers."""
+    return dataclasses.replace(get_config(DENSE), n_layers=layers)
+
+
+def train_phase(dev) -> dict:
+    """``[train]``: TRAIN's steps of ``make_train_step`` on yi-6b at full
+    width, TRAIN["layers"] layers, every layer rematerialized, w_q/w_k
+    tempered by 0.1 as the logits checks temper them: the reference's init
+    makes attention a near arg-max, and through 8 layers its gradients
+    reach norms of millions (clipped to 1), where 12 AdamW steps leave the
+    loss flat (11.555 to 11.554 untempered in a chip run; tempered, d_model
+    512 at 8 layers goes from 11.53 to 8.2 on the CPU). Gates: every
+    loss finite, the last three below the first, two flash forward
+    launches (the forward and its recompute) and one backward a layer and
+    step. Then one step under the profiler: kernels a step, the device's
+    busy share, the attention backward's share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = dense_cut(TRAIN["layers"])
+    model = Model(cfg, remat=TRAIN["remat"])
+    steps = TRAIN["steps"]
+    tcfg = TrainConfig(peak_lr=TRAIN["peak_lr"], warmup_steps=max(2, steps // 20),
+                       total_steps=steps)
+    step_fn, _ = make_train_step(model, tcfg)
+    params, opt = init_train_state(model, tcfg, 0, device=dev)
+    with torch.no_grad():
+        temper_attention(params)
+    n_params = sum(p.numel() for p in leaves(params))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                  global_batch=TRAIN["batch"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    flash_bwd_before = flash_attention_backward.launches
+    losses, walls = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, data.batch(i), i)
+        losses.append(float(metrics["loss"]))  # syncs
+        walls.append(time.perf_counter() - t0)
+    fwd = flash_attention.launches
+    bwd = flash_attention_backward.launches - flash_bwd_before
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] {DENSE} {cfg.n_layers} of {get_config(DENSE).n_layers} layers at full width "
+          f"({n_params / 1e9:.3f} G parameters, bf16; AdamW f32 moments), B={TRAIN['batch']} "
+          f"L={TRAIN['seq']}, remat {TRAIN['remat']}, peak lr {TRAIN['peak_lr']}: losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"[train] a loss is not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"[train] the last three losses {losses[-3:]} are not below the first {losses[0]}")
+    want_fwd, want_bwd = 2 * cfg.n_layers * steps, cfg.n_layers * steps
+    bwd_tc = flash_attention_backward.launches_tc
+    if fwd != want_fwd or bwd != want_bwd or bwd_tc != want_bwd:
+        fail(f"[train] {fwd} flash forward launches (want {want_fwd}) and {bwd} backward, "
+             f"{bwd_tc} of them on tensor cores (want {want_bwd}) in {steps} steps")
+    step_ms = 1e3 * float(np.median(walls[2:]))
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+
+    batch = data.batch(steps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch, steps)
+        float(metrics["loss"])
+        prof_wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = device_activities(prof)
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3
+    bwd_ms = sum(us for name, (_, us) in kernels.items()
+                 if re.search(r"::(delta|dkdv|dkdv_tc|dq|dq_tc)_kernel<", name)) / 1e3
+    fwd_ms = sum(us for name, (_, us) in kernels.items() if "flash_tc_kernel" in name) / 1e3
+    out = dict(
+        launches_fwd=fwd, launches_bwd=bwd, losses=losses, step_ms=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak_gb, n_params=n_params,
+        kernels_per_step=sum(c for c, _ in kernels.values()), busy_share=busy_ms / prof_wall_ms,
+        attn_bwd_ms=bwd_ms, attn_bwd_share=bwd_ms / busy_ms, attn_fwd_ms=fwd_ms,
+        profiled_wall_ms=prof_wall_ms,
+    )
+    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
+    print(f"[train] step {step_ms:.1f} ms (median of steps 2-{steps - 1}; first {1e3 * walls[0]:.1f} "
+          f"ms), {out['tokens_per_s']:.0f} tokens/s, peak memory {peak_gb:.2f} GB; flash launches "
+          f"{fwd} forward, {bwd} backward in {steps} steps", flush=True)
+    print(f"[train] profiled step: wall {prof_wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * out['busy_share']:.1f}% of the wall), {out['kernels_per_step']} kernels; "
+          f"attention backward {bwd_ms:.1f} ms ({100 * out['attn_bwd_share']:.1f}% of the device "
+          f"time), attention forward {fwd_ms:.2f} ms", flush=True)
+    for name, (count, us) in top:
+        print(f"[train]   {us / 1e3:9.3f} ms {count:5d}x  {name[:80]}")
+    del params, opt, metrics
+    return out
+
+
+class _PlainFlash:
+    """Stands in for the flash kernel's autograd Function in ``[train-grad]``:
+    autograd through the plain attention."""
+
+    @staticmethod
+    def apply(q, k, v, causal):
+        return flash_attention_plain(q, k, v, causal=causal)
+
+
+def train_grad_phase(dev) -> dict:
+    """``[train-grad]``: the loss and every gradient leaf of yi-6b at full
+    width (TRAIN["grad_layers"] layers, w_q/w_k tempered as the logits
+    checks temper them) through the kernels, against the same with
+    autograd through ``flash_attention_plain`` (swapped in here only, with
+    ``unittest.mock.patch``). Relative L2 a leaf, GRAD_REL_TOL."""
+    from unittest import mock
+
+    cfg = dense_cut(TRAIN["grad_layers"])
+    model = Model(cfg)
+    params = model.init(1, device=dev)
+    temper_attention(params)
+    p_leaves = leaves(params)
+    for p in p_leaves:
+        p.requires_grad_(True)
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["grad_seq"],
+                                 global_batch=TRAIN["grad_batch"])).batch(0)
+    batch = {k: torch.as_tensor(x, device=dev) for k, x in raw.items()}
+
+    def value_and_grad():
+        loss, _ = model.loss(params, batch)
+        return loss.detach().float(), torch.autograd.grad(loss, p_leaves)
+
+    before = flash_attention_backward.launches
+    loss_k, grads_k = value_and_grad()
+    launched = flash_attention_backward.launches - before
+    with mock.patch.object(flash_mod, "FlashAttention", _PlainFlash):
+        loss_p, grads_p = value_and_grad()
+    if launched != cfg.n_layers or flash_attention_backward.launches != before + launched:
+        fail(f"[train-grad] {launched} backward launches with the kernels (want {cfg.n_layers})")
+    rel = [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+           for a, b in zip(grads_k, grads_p)]
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max(rel)
+    print(f"[train-grad] {DENSE} {cfg.n_layers} layers full width B={TRAIN['grad_batch']} "
+          f"L={TRAIN['grad_seq']}: loss {loss_k.item():.6f} kernels vs {loss_p.item():.6f} plain "
+          f"(rel {loss_rel:.3g}); {len(rel)} gradient leaves, worst rel L2 {worst:.4g} "
+          f"(limit {GRAD_REL_TOL}), median {float(np.median(rel)):.4g}", flush=True)
+    if not (worst <= GRAD_REL_TOL and loss_rel <= GRAD_REL_TOL):
+        fail(f"[train-grad] gradients differ: worst leaf {worst}, loss {loss_rel}")
+    return dict(worst_rel=worst, loss_rel=loss_rel, leaves=len(rel))
+
+
+def train_restart_phase(dev) -> dict:
+    """``[train-restart]``: ``launch.train.train`` on reduced yi-6b on the
+    card: uninterrupted, then with a failure injected and resumed from the
+    latest checkpoint. Gates that the resume starts at the checkpointed
+    step; prints the largest loss difference from the uninterrupted run."""
+    import tempfile
+
+    kw = TRAIN["restart"]
+    run = dict(steps=kw["steps"], seq_len=kw["seq_len"], global_batch=kw["global_batch"],
+               ckpt_every=kw["ckpt_every"], device=dev, log_every=1000)
+    with tempfile.TemporaryDirectory() as d1, tempfile.TemporaryDirectory() as d2:
+        full = train(DENSE, ckpt_dir=d1, **run)
+        try:
+            train(DENSE, ckpt_dir=d2, simulate_failure_at=kw["fail_at"], **run)
+            fail("[train-restart] the injected failure did not raise")
+        except SimulatedFailure:
+            pass
+        resumed = train(DENSE, ckpt_dir=d2, **run)
+    want = kw["fail_at"] // kw["ckpt_every"] * kw["ckpt_every"]
+    diff = max(abs(a - b) for a, b in zip(full["losses"][want:], resumed["losses"]))
+    print(f"[train-restart] reduced {DENSE}: failure at step {kw['fail_at']}, resumed at step "
+          f"{resumed['start']} (checkpoint every {kw['ckpt_every']}: want {want}); "
+          f"{len(resumed['losses'])} steps after the resume, largest loss difference from the "
+          f"uninterrupted run {diff:.3g}", flush=True)
+    if resumed["start"] != want or len(resumed["losses"]) != kw["steps"] - want:
+        fail(f"[train-restart] resumed at {resumed['start']}, want {want}")
+    return dict(start=resumed["start"], max_loss_diff=diff)
+
+
 def sass_mma_counts() -> dict:
     """Each built library's counts of tensor-core instructions in its SASS:
     HGMMA (wgmma) and HMMA (mma.sync)."""
@@ -1625,6 +1945,8 @@ def main() -> None:
         fail("the flash_attention library has no HGMMA (wgmma) instruction")
     if not (mma["ssd_scan"]["HGMMA"] or mma["ssd_scan"]["HMMA"]):
         fail("the ssd_scan library has no HGMMA or HMMA (tensor-core) instruction")
+    if not mma["flash_attention_bwd"]["HMMA"]:
+        fail("the flash_attention_bwd library has no HMMA (mma.sync) instruction")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     floor = timing_floor(dev, flush)
@@ -1647,8 +1969,19 @@ def main() -> None:
     paged_g16 = paged_phase(dev, flush, heads=moe_heads, tag=MOE)
     paged_g5 = paged_phase(dev, flush, heads=scout_heads, tag=SCOUT, pools=POOLS[:1])
     embed_rows = embed_kernel_rows(dev, flush)
+    bwd_rows = flash_bwd_phase(dev, flush)
     del flush
     stamp("build and kernel rows")
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_grad_phase(dev)
+    train_restart_phase(dev)
+    stamp("training")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     served = serve_phase(DENSE, ("flash_attention", "paged_attention"), "serve")
     profile_decode(served["server"], "profile")
@@ -1757,6 +2090,14 @@ def main() -> None:
                        paged8["short"], ssd_rows[256], flash_g16[256], paged_g16["short"],
                        flash_g5[256], paged_g5["short"])):
         k.update({key: row[key] for key in ("variant", "splits", "p_split", "ctas") if key in row})
+    kernels.append(
+        entry("flash_attention_bwd", "flash_attention_bwd.cu",
+              "src/repro/models/layers.py:108 (no Pallas kernel: the reference differentiates "
+              "its jnp attention with jax.grad)",
+              f"train {DENSE} ({TRAIN['layers']} of {get_config(DENSE).n_layers} layers), "
+              f"{TRAIN['steps']} steps", trained["launches_bwd"], bwd_rows[(DENSE, TRAIN["seq"])],
+              f"B={TRAIN['batch']} H=32 K=4 D=128 L={TRAIN['seq']} causal"))
+    kernels[-1]["variant"] = bwd_rows[(DENSE, TRAIN["seq"])]["variant"]
     kernels.append(
         entry("sim_decode_telemetry", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
               f"DES routed Table-2 fleet, telemetry windows of {TELEMETRY['window']}",

@@ -1,0 +1,5 @@
+"""Checkpointing (counterpart of ``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+
+__all__ = ["Checkpointer"]

@@ -92,9 +92,10 @@ constexpr int kThreads = 256;  // four threads per query row
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, Strides sq,
-                      Strides sk, Strides sv, Strides so, int H, int KH,
-                      int Lq, int Lk, int causal, float scale) {
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, Strides sq, Strides sk,
+                      Strides sv, Strides so, int H, int KH, int Lq, int Lk,
+                      int causal, float scale) {
   constexpr int DP = D + 1;          // padded shared-memory row stride
   constexpr int kCols = kBlock / 4;  // score columns per thread
   constexpr int kAcc = D / 4;        // output columns per thread
@@ -215,12 +216,15 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) store(acc[i] / denom, og + 4 * i);
+    // m is already in units of scale * q.k here.
+    if (lse != nullptr && sub == 0)
+      lse[((long long)b * H + h) * Lq + qpos] = m + logf(denom);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
-                        Strides sq, Strides sk, Strides sv, Strides so, int B,
+                        float* lse, Strides sq, Strides sk, Strides sv, Strides so, int B,
                         int H, int KH, int Lq, int Lk, int causal, float scale,
                         cudaStream_t stream) {
   static bool done[64] = {};
@@ -231,8 +235,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((Lq + kBlock - 1) / kBlock, H, B);
   flash_simt_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, H, KH,
-      Lq, Lk, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, sv, so, H,
+      KH, Lq, Lk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -290,7 +294,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
-                    __nv_bfloat16* __restrict__ o, Strides so, MapOrder oq,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    Strides so, MapOrder oq,
                     MapOrder ok, MapOrder ov, int H, int KH, int Lq, int Lk,
                     int causal, float scale_log2) {
   using S = Tc<D>;
@@ -452,6 +457,15 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (lse != nullptr && cq == 0) {
+    // m is in raw q.k units and the sums in base 2 of scale * q.k: lse in
+    // base e is ln 2 * (m * scale_log2 + log2 l).
+    float* lrow = lse + ((long long)b * H + h) * Lq;
+    if (qpos0 < Lq)
+      lrow[qpos0] = 0.6931471805599453f * (m0 * scale_log2 + log2f(fmaxf(l0, 1e-30f)));
+    if (qpos1 < Lq)
+      lrow[qpos1] = 0.6931471805599453f * (m1 * scale_log2 + log2f(fmaxf(l1, 1e-30f)));
+  }
   __nv_bfloat16* ob = o + b * so.b + h * so.h + cq;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -531,7 +545,7 @@ cudaError_t encode(CUtensorMap* map, MapOrder* ord, const void* ptr,
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      Strides sq, Strides sk, Strides sv, Strides so, int B,
+                      float* lse, Strides sq, Strides sk, Strides sv, Strides so, int B,
                       int H, int KH, int Lq, int Lk, int causal, float scale,
                       cudaStream_t stream) {
   static bool done[64] = {};
@@ -544,8 +558,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   if ((err = encode<D>(&tv, &ov, v, sv, B, KH, Lk)) != cudaSuccess) return err;
   const dim3 grid((Lq + kBlock - 1) / kBlock, H, B);
   flash_tc_kernel<D><<<grid, kTcThreads, Tc<D>::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), so, oq, ok, ov, H, KH, Lq,
-      Lk, causal, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, so, oq, ok, ov, H, KH,
+      Lq, Lk, causal, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -558,13 +572,13 @@ int variant(int D, int dtype) {
 
 template <typename T>
 cudaError_t dispatch_simt(int D, const void* q, const void* k, const void* v,
-                          void* o, Strides sq, Strides sk, Strides sv,
+                          void* o, float* lse, Strides sq, Strides sk, Strides sv,
                           Strides so, int B, int H, int KH, int Lq, int Lk,
                           int causal, float scale, cudaStream_t s) {
 #define REPRO_SIMT(DD)                                                      \
   case DD:                                                                  \
-    return launch_simt<T, DD>(q, k, v, o, sq, sk, sv, so, B, H, KH, Lq, Lk, \
-                              causal, scale, s)
+    return launch_simt<T, DD>(q, k, v, o, lse, sq, sk, sv, so, B, H, KH, Lq, \
+                              Lk, causal, scale, s)
   switch (D) {
     REPRO_SIMT(32);
     REPRO_SIMT(64);
@@ -577,13 +591,13 @@ cudaError_t dispatch_simt(int D, const void* q, const void* k, const void* v,
 }
 
 cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
-                        void* o, Strides sq, Strides sk, Strides sv,
+                        void* o, float* lse, Strides sq, Strides sk, Strides sv,
                         Strides so, int B, int H, int KH, int Lq, int Lk,
                         int causal, float scale, cudaStream_t s) {
 #define REPRO_TC(DD)                                                      \
   case DD:                                                                \
-    return launch_tc<DD>(q, k, v, o, sq, sk, sv, so, B, H, KH, Lq, Lk,    \
-                         causal, scale, s)
+    return launch_tc<DD>(q, k, v, o, lse, sq, sk, sv, so, B, H, KH, Lq,   \
+                         Lk, causal, scale, s)
   switch (D) {
     REPRO_TC(64);
     REPRO_TC(80);
@@ -604,9 +618,13 @@ extern "C" int flash_attention_variant(int D, int dtype) {
 
 // dtype: 0 = float32, 1 = bfloat16. q viewed as (B,H,Lq,D), k/v as
 // (B,KH,Lk,D), o like q, each with D contiguous and element strides
-// (b, h, l) given; one dtype.
+// (b, h, l) given; one dtype. lse, when not null, receives each query row's
+// log-sum-exp of scale * q.k over its unmasked keys, f32 (B, H, Lq)
+// contiguous: what the backward kernel (flash_attention_bwd.cu) recomputes
+// the probabilities from. Serving passes null.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int H,
     int KH, int Lq, int Lk, int D, int causal, float scale, int dtype,
     long long qsb, long long qsh, long long qsl, long long ksb,
     long long ksh, long long ksl, long long vsb, long long vsh,
@@ -620,14 +638,14 @@ extern "C" int flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant(D, dtype)) {
     case 1:
-      return (int)dispatch_tc(D, q, k, v, o, sq, sk, sv, so, B, H, KH, Lq,
-                              Lk, causal, scale, s);
+      return (int)dispatch_tc(D, q, k, v, o, lse, sq, sk, sv, so, B, H, KH,
+                              Lq, Lk, causal, scale, s);
     case 0:
       if (dtype == 0)
-        return (int)dispatch_simt<float>(D, q, k, v, o, sq, sk, sv, so, B,
-                                         H, KH, Lq, Lk, causal, scale, s);
-      return (int)dispatch_simt<__nv_bfloat16>(D, q, k, v, o, sq, sk, sv, so,
-                                               B, H, KH, Lq, Lk, causal,
+        return (int)dispatch_simt<float>(D, q, k, v, o, lse, sq, sk, sv, so,
+                                         B, H, KH, Lq, Lk, causal, scale, s);
+      return (int)dispatch_simt<__nv_bfloat16>(D, q, k, v, o, lse, sq, sk, sv,
+                                               so, B, H, KH, Lq, Lk, causal,
                                                scale, s);
     default:
       return (int)cudaErrorInvalidValue;

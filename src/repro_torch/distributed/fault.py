@@ -1,10 +1,12 @@
-"""Fault tolerance: failure detection.
+"""Fault tolerance: failure detection, the straggler policy, the mesh
+shape a restart would take.
 
-Holds :class:`HealthMonitor`, copied from ``repro.distributed.fault``; the
-fleet simulator's fault injection (:mod:`repro_torch.sim.faults`) drives it
-on sim time. The reference's ``elastic_mesh``, ``largest_mesh_shape``,
-``StepTimer`` and ``SimulatedFailure`` belong to the distributed slice of
-the port and are not here yet.
+Copies from ``repro.distributed.fault``: :class:`HealthMonitor` (the fleet
+simulator's fault injection, :mod:`repro_torch.sim.faults`, drives it on
+sim time), :class:`StepTimer` and :class:`SimulatedFailure` (the training
+launcher's straggler flag and restart drill) and
+:func:`largest_mesh_shape`. The reference's ``elastic_mesh`` belongs to
+the port's sharded path and is not here yet.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import dataclasses
 import math
 import time
 from typing import Callable, Optional
-
 
 
 @dataclasses.dataclass
@@ -62,3 +63,55 @@ class HealthMonitor:
     def dead_hosts(self) -> list[int]:
         return sorted(self.dead)
 
+
+
+def largest_mesh_shape(
+    n_devices: int, *, model_parallel: int, max_data: Optional[int] = None
+) -> tuple[int, int]:
+    """Largest (data, model) grid from surviving devices.
+
+    Model parallelism is fixed by the model's memory footprint; elasticity
+    happens on the data axis (whole TP groups are added/removed).
+    """
+    if n_devices < model_parallel:
+        raise ValueError(
+            f"need at least one TP group ({model_parallel}), got {n_devices}"
+        )
+    data = n_devices // model_parallel
+    if max_data is not None:
+        data = min(data, max_data)
+    return data, model_parallel
+
+
+@dataclasses.dataclass
+class StepTimer:
+    """Detects straggler steps: > multiplier × rolling-median step time."""
+
+    window: int = 32
+    multiplier: float = 2.0
+
+    def __post_init__(self) -> None:
+        self.history: list[float] = []
+        self.straggler_steps: list[int] = []
+        self._step = 0
+
+    def record(self, duration_s: float) -> bool:
+        """Returns True if this step is a straggler."""
+        self._step += 1
+        hist = self.history[-self.window :]
+        is_straggler = False
+        if len(hist) >= 8:
+            med = sorted(hist)[len(hist) // 2]
+            if duration_s > self.multiplier * med:
+                is_straggler = True
+                self.straggler_steps.append(self._step)
+        self.history.append(duration_s)
+        return is_straggler
+
+    @property
+    def straggler_rate(self) -> float:
+        return len(self.straggler_steps) / max(1, self._step)
+
+
+class SimulatedFailure(RuntimeError):
+    """Raised by tests/examples to exercise the restart path."""

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("flash_attention", "paged_attention", "ssd_scan", "sim_decode")
+KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "ssd_scan", "sim_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -39,9 +39,15 @@ _D = ctypes.c_double
 SIGNATURES = {
     "flash_attention": (
         "flash_attention_fwd",
-        # q, k, v, o, B, H, KH, Lq, Lk, D, causal, scale, dtype, element
-        # strides (b, h, l) of q, k, v and o, stream
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I] + [_L] * 12 + [_P],
+        # q, k, v, o, lse (null: none), B, H, KH, Lq, Lk, D, causal, scale,
+        # dtype, element strides (b, h, l) of q, k, v and o, stream
+        [_P] * 5 + [_I, _I, _I, _I, _I, _I, _I, _F, _I] + [_L] * 12 + [_P],
+    ),
+    "flash_attention_bwd": (
+        "flash_attention_bwd",
+        # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, H, KH, Lq, Lk,
+        # D, causal, scale, dtype, host array of 24 element strides, stream
+        [_P] * 10 + [_I] * 7 + [_F, _I, _P, _P],
     ),
     "paged_attention": (
         "paged_attention_fwd",

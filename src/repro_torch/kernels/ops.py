@@ -5,7 +5,8 @@ and the kernels take head-major tensors, so these functions swap the layout
 and call the kernel modules, which launch the Hopper kernel on CUDA tensors
 and run the plain PyTorch version on CPU tensors. The flash kernel reads
 strides, so prefill hands it head-major views and gets back an output that
-is ``(B, L, H, D)`` in memory: no copy either way.
+is ``(B, L, H, D)`` in memory: no copy either way. Under autograd prefill
+goes through the flash kernel's ``torch.autograd.Function``.
 
 :func:`slot_decode_attention` is the engine-level mapping that the
 reference's slot cache describes: one layer's slot cache
@@ -41,8 +42,13 @@ def flash_attention(
     *,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Prefill attention in the model layout; returns (B, L, H, D)."""
+    """Prefill attention in the model layout; returns (B, L, H, D). With
+    grad mode on and an input that requires grad it goes through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttention`, whose
+    backward is the backward kernel (its plain version on the CPU)."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _flash.FlashAttention.apply(qh, kh, vh, causal).transpose(1, 2)
     return _flash.flash_attention(qh, kh, vh, causal=causal).transpose(1, 2)
 
 

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.flash_attention import DTYPE_CODES, SUPPORTED_HEAD_DIMS
 
 #: Codes of the page and scale dtypes in ``csrc/paged_attention.cu``.
@@ -165,11 +166,15 @@ def paged_attention(
 ) -> torch.Tensor:
     """Decode attention over pages: the kernel on CUDA, the plain version
     on the CPU. Block-table entries are trusted to name pages of the pool;
-    a length past ``pps * page`` counts as ``pps * page``."""
+    a length past ``pps * page`` counts as ``pps * page``. Decode has no
+    backward kernel: on CUDA inputs that require grad, with grad mode on,
+    it raises rather than return an output with no gradient."""
     if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales
         )
+    refuse_grad("paged_attention (decode attention's backward kernel)",
+                q, k_pages, v_pages, k_scales, v_scales)
     _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     b, h, d = q.shape
     _, page, n_kv, _ = k_pages.shape

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.flash_attention import DTYPE_CODES
 
 #: Shared memory a CTA may use on sm_90 (bytes).
@@ -129,9 +130,13 @@ def ssd_scan(
     b_mat: torch.Tensor,
     c_mat: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The chunk scan: the kernel on CUDA, the plain version on the CPU."""
+    """The chunk scan: the kernel on CUDA, the plain version on the CPU.
+    The kernel has no backward yet: on CUDA inputs that require grad, with
+    grad mode on, it raises (the SSD scan's backward kernel) rather than
+    return an output with no gradient."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, log_a, b_mat, c_mat)
+    refuse_grad("ssd_scan (the SSD scan's backward kernel)", x, log_a, b_mat, c_mat)
     _check(x, log_a, b_mat, c_mat)
     bsz, h, length, p = x.shape
     n = b_mat.shape[-1]

@@ -2,6 +2,12 @@
 families)."""
 
 from repro_torch.models.model_zoo import Model, get_model
-from repro_torch.models.params import ParamDef, init_params, params_from_numpy
+from repro_torch.models.params import (
+    ParamDef,
+    init_params,
+    opt_state_from_numpy,
+    params_from_numpy,
+)
 
-__all__ = ["Model", "get_model", "ParamDef", "init_params", "params_from_numpy"]
+__all__ = ["Model", "get_model", "ParamDef", "init_params", "opt_state_from_numpy",
+           "params_from_numpy"]

@@ -1,5 +1,5 @@
-"""Output heads (counterpart of ``repro.models.heads``; the training loss
-comes with the training slice)."""
+"""Output heads and the training loss (counterpart of
+``repro.models.heads``)."""
 
 from __future__ import annotations
 
@@ -40,3 +40,33 @@ def codebook_logits(
     """MusicGen's multi-codebook heads: (B, L, D) x (K, D, V) → (B, L, K, V)."""
     logits = torch.einsum("bld,kdv->blkv", hidden, heads)
     return _mask_padded(logits, valid_vocab)
+
+
+def softmax_xent(
+    logits: torch.Tensor,  # (..., V): (B, L, V) or codebook (B, L, K, V)
+    labels: torch.Tensor,  # (...) integer
+    *,
+    z_loss: float = 0.0,
+    mask: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, dict]:
+    """Mean cross-entropy in f32, with the optional z-loss regularizer
+    ``z_loss * lse**2``; with ``mask``, the mean over its weight (at least
+    1). Returns (loss, {"loss", "accuracy"}); accuracy takes the first
+    arg-max, as ``jnp.argmax`` does."""
+    lf = logits.float()
+    labels = torch.as_tensor(labels, device=lf.device).long()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse.square()
+    hit = (lf.argmax(-1) == labels).float()
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=lf.device).float()
+        denom = mask.sum().clamp_min(1.0)
+        loss = (nll * mask).sum() / denom
+        acc = (hit * mask).sum() / denom
+    else:
+        loss = nll.mean()
+        acc = hit.mean()
+    return loss, {"loss": loss, "accuracy": acc}

@@ -32,6 +32,7 @@ from repro_torch.models.layers import (
     rope_angles,
 )
 from repro_torch.models.params import ParamDef, stack_tree
+from repro_torch.models.remat import remat as remat_layer
 from repro_torch.models.ssm import mamba2_block, mamba2_decode_step, mamba2_param_defs
 
 # ---------------------------------------------------------------------------
@@ -146,31 +147,44 @@ def _mamba_kw(cfg: ArchConfig) -> dict:
     return dict(n_heads=cfg.n_ssm_heads, head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state)
 
 
-def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor):
-    """Every group over the whole sequence → (x, decode state)."""
+def _group_full(x: torch.Tensor, g: int, params: dict, cfg: ArchConfig, cos, sin):
+    """Group ``g`` (its Mamba blocks, then its shared-attention invocation)
+    over the whole sequence → (x, conv states, SSD states, k, v)."""
+    kw = _mamba_kw(cfg)
+    g_conv, g_ssd = [], []
+    for s in range(cfg.attn_every):
+        p = _index(params["mamba"], g, s)
+        out, st = mamba2_block(rms_norm(x, p["in_norm"], cfg.norm_eps), p, **kw)
+        x = x + out
+        g_conv.append(st["conv"])
+        g_ssd.append(st["ssd"])
+    base = _index(params["shared"], g % cfg.n_shared_attn_blocks)
+    x, (k, v) = _shared_attn_apply(x, base, _index(params["lora"], g), cfg, cos, sin)
+    return x, torch.stack(g_conv), torch.stack(g_ssd), k, v
+
+
+def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor, remat: str = "none",
+              keep_state: bool = False):
+    """Every group over the whole sequence → (x, decode state). Each group
+    runs under the rematerialization mode ``remat`` (the training pass's),
+    as the reference's ``_group_scan`` checkpoints a group; the state is
+    built only with ``keep_state`` (prefill), else it is None."""
     x = params["embed"][tokens.long()]
     bsz, length = tokens.shape
     pos = torch.arange(length, device=x.device).expand(bsz, length)
     cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
-    kw = _mamba_kw(cfg)
-    convs, ssds, ks, vs = [], [], [], []
+    groups = []
     for g in range(n_groups(cfg)):
-        g_conv, g_ssd = [], []
-        for s in range(cfg.attn_every):
-            p = _index(params["mamba"], g, s)
-            out, st = mamba2_block(rms_norm(x, p["in_norm"], cfg.norm_eps), p, **kw)
-            x = x + out
-            g_conv.append(st["conv"])
-            g_ssd.append(st["ssd"])
-        base = _index(params["shared"], g % cfg.n_shared_attn_blocks)
-        x, (k, v) = _shared_attn_apply(x, base, _index(params["lora"], g), cfg, cos, sin)
-        convs.append(torch.stack(g_conv))
-        ssds.append(torch.stack(g_ssd))
-        ks.append(k)
-        vs.append(v)
+        x, *leaves = remat_layer(lambda h, g=g: _group_full(h, g, params, cfg, cos, sin),
+                                 remat)(x)
+        if keep_state:
+            groups.append(leaves)
+    if not keep_state:
+        return x, None
+    convs, ssds, ks, vs = (torch.stack(t) for t in zip(*groups))
     state = {
-        "attn": (torch.stack(ks), torch.stack(vs)),
-        "mamba": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)},
+        "attn": (ks, vs),
+        "mamba": {"conv": convs, "ssd": ssds},
     }
     return x, state
 
@@ -181,16 +195,27 @@ def _finish(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return heads_lib.lm_logits(x, params["lm_head"], valid_vocab=vv)
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits (B, L, V), aux_loss)."""
-    x, _ = _run_full(params, cfg, batch["tokens"])
+def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: str = "none"
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits (B, L, V), aux_loss); ``remat`` as
+    :func:`repro_torch.models.transformer.forward`'s."""
+    x, _ = _run_full(params, cfg, batch["tokens"], remat)
     return _finish(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: str = "none", **_
+            ) -> tuple[torch.Tensor, dict]:
+    """Training loss: cross-entropy against ``batch["labels"]``."""
+    logits, _ = forward(params, cfg, batch, remat=remat)
+    loss, metrics = heads_lib.softmax_xent(logits, batch["labels"])
+    metrics["total_loss"] = loss
+    return loss, metrics
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:
     """Prefill of unpadded prompts → (last-position logits (B, V), decode
     state of the prompt's length)."""
-    x, state = _run_full(params, cfg, batch["tokens"])
+    x, state = _run_full(params, cfg, batch["tokens"], keep_state=True)
     return _finish(params, cfg, x[:, -1:])[:, 0], state
 
 

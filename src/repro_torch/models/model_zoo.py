@@ -1,11 +1,11 @@
 """Model facade (counterpart of ``repro.models.model_zoo``): every family
 the reference ships.
 
-``Model(cfg, kv_dtype=..., moe_group=...)`` exposes ``init`` / ``forward``
-/ ``prefill`` / ``decode_step`` / ``init_cache``, the slot axis of every
-decode-state leaf (``cache_batch_axes``), the inputs of a shape cell as
-meta tensors (``input_specs``) and the parameter counts
-(``active_param_count`` counts an MoE layer's top-k experts only);
+``Model(cfg, kv_dtype=..., moe_group=..., remat=...)`` exposes ``init`` /
+``forward`` / ``loss`` / ``prefill`` / ``decode_step`` / ``init_cache``,
+the slot axis of every decode-state leaf (``cache_batch_axes``), the
+inputs of a shape cell as meta tensors (``input_specs``) and the parameter
+counts (``active_param_count`` counts an MoE layer's top-k experts only);
 :func:`get_model` builds one by config name. The dense, MoE, vlm and audio
 families (yi-6b, granite-3-8b, granite-34b, gemma-2b, llama3-70b;
 qwen3-235b-a22b, llama4-scout, llama4-maverick; qwen2-vl-7b;
@@ -26,6 +26,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.models import hybrid, transformer, xlstm_model
 from repro_torch.models.params import init_params, param_bytes, param_count
+from repro_torch.models.remat import REMAT_MODES
 
 KV_DTYPES = ("bf16", "int8")
 #: Families whose decode state is a tree of recurrent states (and, for the
@@ -40,13 +41,20 @@ class Model:
     """``kv_dtype="int8"`` (dense and MoE families) keeps the KV cache as
     int8 with one f16 scale per (position, head), as the reference's
     ``Model`` does. ``moe_group`` is the tokens an MoE group takes in
-    ``forward`` and ``prefill`` (decode routes each sequence alone)."""
+    ``forward``, ``loss`` and ``prefill`` (decode routes each sequence
+    alone). ``remat`` ("none", "full", "dots") is the per-layer (hybrid
+    and xLSTM: per-group) rematerialization of ``loss``
+    (:mod:`repro_torch.models.remat`); ``forward`` runs without it, as the
+    reference's does."""
 
     cfg: ArchConfig
     kv_dtype: str = "bf16"
     moe_group: int = 512
+    remat: str = "none"
 
     def __post_init__(self) -> None:
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"remat {self.remat!r} not in {REMAT_MODES}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {self.kv_dtype!r} not in {KV_DTYPES}")
         family = self.cfg.family
@@ -86,6 +94,12 @@ class Model:
 
     def forward(self, params: dict, batch: dict):
         return self._mod.forward(params, self.cfg, batch, **self._group())
+
+    def loss(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Training loss → (scalar, metrics): the family's ``loss_fn``
+        (cross-entropy of the logits against ``batch["labels"]``; for MoE
+        plus 0.01 times the routers' aux loss)."""
+        return self._mod.loss_fn(params, self.cfg, batch, remat=self.remat, **self._group())
 
     def prefill(self, params: dict, batch: dict):
         return self._mod.prefill(params, self.cfg, batch, **self._kw, **self._group())

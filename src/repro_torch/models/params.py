@@ -89,7 +89,7 @@ def init_params(
 
 
 def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))  # keeps a 0-d leaf 0-d
     if not arr.flags.writeable:  # e.g. a view of a jax array's buffer
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from jax arrays
@@ -109,6 +109,19 @@ def params_from_numpy(tree: Any, *, device: str | torch.device = "cuda") -> Any:
         return _to_tensor(node, dev)
 
     return conv(tree)
+
+
+def opt_state_from_numpy(state: Any, *, device: str | torch.device = "cuda") -> Any:
+    """Carry a reference optimizer state (its ``AdamWState`` or
+    ``AdafactorState`` with numpy leaves, e.g. ``jax.tree.map(np.asarray,
+    opt_state)``) into the port's state of the same name, field by field."""
+    from repro_torch.training import optimizer
+
+    cls = getattr(optimizer, type(state).__name__, None)
+    if cls not in (optimizer.AdamWState, optimizer.AdafactorState):
+        raise TypeError(f"not an optimizer state: {type(state).__name__}")
+    dev = resolve_device(device)
+    return cls(*(params_from_numpy(getattr(state, f), device=dev) for f in cls._fields))
 
 
 def param_count(defs: Any) -> int:

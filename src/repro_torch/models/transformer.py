@@ -67,6 +67,7 @@ from repro_torch.models.moe import (
     moe_param_defs,
 )
 from repro_torch.models.params import ParamDef, stack_tree
+from repro_torch.models.remat import remat as remat_layer
 
 #: dtype of a KV cache that is not int8.
 KV_DTYPE = torch.bfloat16
@@ -353,10 +354,26 @@ def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return heads_lib.lm_logits(x, params["lm_head"], valid_vocab=vv)
 
 
+def _layer_full(x, p, is_moe: bool, cos, sin, memory, cfg: ArchConfig, kv_dtype: str,
+                moe_group: int, moe_cf: float):
+    """One layer over the whole sequence → (x, its cache leaves, MoE aux
+    loss or None)."""
+    x, kv = _self_attention_full(x, p, cos, sin, cfg, kv_dtype)
+    if cfg.cross_attention:
+        mkv = _memory_kv(p, memory)
+        x = _cross_attention(x, p, mkv, cfg)
+        kv = (*kv, *mkv)
+    x, a = _ffn_sublayer(x, p, cfg, is_moe, moe_group, moe_cf)
+    return x, kv, a
+
+
 def _run_full(params: dict, cfg: ArchConfig, batch: dict, *, kv_dtype: str = "bf16",
-              moe_group: int = 512, moe_cf: float = TRAIN_CAPACITY_FACTOR):
+              moe_group: int = 512, moe_cf: float = TRAIN_CAPACITY_FACTOR,
+              remat: str = "none", keep_cache: bool = False):
     """Embedding + every layer over the whole sequence → (x, per-layer
-    caches, summed MoE aux loss)."""
+    caches, summed MoE aux loss). Each layer runs under the
+    rematerialization mode ``remat`` (the training pass's); the caches are
+    kept only with ``keep_cache`` (prefill), else the list is empty."""
     x = _embed_input(params, cfg, batch)
     b, length = x.shape[:2]
     cos, sin = _angles(cfg, batch, torch.arange(length, device=x.device).expand(b, length))
@@ -364,25 +381,42 @@ def _run_full(params: dict, cfg: ArchConfig, batch: dict, *, kv_dtype: str = "bf
     kvs = []
     aux = torch.zeros((), device=x.device)
     for p, is_moe in _layers(params):
-        x, kv = _self_attention_full(x, p, cos, sin, cfg, kv_dtype)
-        if cfg.cross_attention:
-            mkv = _memory_kv(p, memory)
-            x = _cross_attention(x, p, mkv, cfg)
-            kv = (*kv, *mkv)
-        x, a = _ffn_sublayer(x, p, cfg, is_moe, moe_group, moe_cf)
+        args = (p, is_moe, cos, sin, memory, cfg, kv_dtype, moe_group, moe_cf)
+        x, kv, a = remat_layer(lambda h, args=args: _layer_full(h, *args), remat)(x)
+        if keep_cache:
+            kvs.append(kv)
         aux = aux if a is None else aux + a
-        kvs.append(kv)
     return x, kvs, aux
 
 
 def forward(
-    params: dict, cfg: ArchConfig, batch: dict, *, moe_group: int = 512
+    params: dict, cfg: ArchConfig, batch: dict, *, moe_group: int = 512,
+    remat: str = "none",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (logits (B, L, V), or (B, L, n_codebooks, V)
-    with codebook heads; the MoE layers' summed aux loss, 0 for dense)."""
-    x, _, aux = _run_full(params, cfg, batch, moe_group=moe_group)
+    with codebook heads; the MoE layers' summed aux loss, 0 for dense).
+    ``remat`` ("none", "full", "dots") is the training pass's per-layer
+    rematerialization (:mod:`repro_torch.models.remat`). The reference's
+    ``causal_mode`` has no counterpart: the flash kernel never visits the
+    key blocks above the diagonal."""
+    x, _, aux = _run_full(params, cfg, batch, moe_group=moe_group, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head(params, cfg, x), aux
+
+
+def loss_fn(
+    params: dict, cfg: ArchConfig, batch: dict, *, remat: str = "none",
+    aux_coeff: float = 0.01, moe_group: int = 512,
+) -> tuple[torch.Tensor, dict]:
+    """Training loss: cross-entropy of the forward's logits against
+    ``batch["labels"]`` plus ``aux_coeff`` times the MoE aux loss → (total,
+    metrics with ``loss``, ``accuracy``, ``aux_loss``, ``total_loss``)."""
+    logits, aux = forward(params, cfg, batch, moe_group=moe_group, remat=remat)
+    loss, metrics = heads_lib.softmax_xent(logits, batch["labels"])
+    total = loss + aux_coeff * aux
+    metrics["aux_loss"] = aux
+    metrics["total_loss"] = total
+    return total, metrics
 
 
 def prefill(
@@ -394,8 +428,8 @@ def prefill(
     int8, (k, v, k_scale, v_scale) with the scales (n_layers, B, L, K, 1)
     f16; with cross-attention (cross_k, cross_v) after them, each
     (n_layers, B, cross_mem_len, K, D))."""
-    x, kvs, _ = _run_full(params, cfg, batch, kv_dtype=kv_dtype,
-                          moe_group=moe_group, moe_cf=PREFILL_CAPACITY_FACTOR)
+    x, kvs, _ = _run_full(params, cfg, batch, kv_dtype=kv_dtype, moe_group=moe_group,
+                          moe_cf=PREFILL_CAPACITY_FACTOR, keep_cache=True)
     # "last_pos" supports right-padded prompts (serving buckets): logits are
     # taken at the true last prompt token, not the padded end.
     if "last_pos" in batch:

@@ -24,6 +24,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import heads as heads_lib
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.params import ParamDef, stack_tree
+from repro_torch.models.remat import remat as remat_layer
 from repro_torch.models.xlstm import (
     mlstm_block,
     mlstm_block_defs,
@@ -91,16 +92,38 @@ def _run(params: dict, cfg: ArchConfig, x: torch.Tensor, states: Optional[dict] 
     }
 
 
+def _group_full(x: torch.Tensor, g: int, params: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Group ``g`` over the whole sequence from the initial states, its
+    final states dropped (the forward and the training pass)."""
+    for s in range(cfg.slstm_every - 1):
+        x, _ = mlstm_block(x, _index(params["mlstm"], g, s), n_heads=cfg.n_heads)
+    x, _ = slstm_block(x, _index(params["slstm"], g), n_heads=cfg.n_heads)
+    return x
+
+
 def _finish(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     vv = cfg.vocab if cfg.padded_vocab != cfg.vocab else None
     return heads_lib.lm_logits(x, params["lm_head"], valid_vocab=vv)
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward → (logits (B, L, V), aux loss 0)."""
-    x, _ = _run(params, cfg, params["embed"][batch["tokens"].long()])
+def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: str = "none"
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward → (logits (B, L, V), aux loss 0). ``remat``
+    checkpoints each group, as the reference's ``_group_scan`` does."""
+    x = params["embed"][batch["tokens"].long()]
+    for g in range(n_groups(cfg)):
+        x = remat_layer(lambda h, g=g: _group_full(h, g, params, cfg), remat)(x)
     return _finish(params, cfg, x), torch.zeros((), device=x.device)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: str = "none", **_
+            ) -> tuple[torch.Tensor, dict]:
+    """Training loss: cross-entropy against ``batch["labels"]``."""
+    logits, _ = forward(params, cfg, batch, remat=remat)
+    loss, metrics = heads_lib.softmax_xent(logits, batch["labels"])
+    metrics["total_loss"] = loss
+    return loss, metrics
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:

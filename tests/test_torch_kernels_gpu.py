@@ -16,7 +16,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    FlashAttention,
+    backward_variant,
     flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_plain,
     flash_attention_plain,
     variant,
 )
@@ -386,6 +390,173 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     scales = torch.ones(4, 16, 2, 1, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="scales"):
         paged_attention(q, pages, pages, bt, lengths, scales, scales)
+
+
+# The backward kernel against its plain version: both accumulate in f32;
+# the f32 cases differ by summation order (held relative to the largest
+# gradient), the bf16 ones also by which bf16 value a result rounds to
+# (2e-2 and 2 bf16 ulps of each row's largest value, as the forward rows).
+FLASH_BWD_CASES = [
+    # (B, Lq, Lk, H, K, D, causal, dtype)
+    (2, 256, 256, 8, 2, 64, True, torch.float32),
+    (1, 200, 200, 6, 2, 64, True, torch.float32),  # ragged length
+    (2, 130, 300, 8, 2, 128, False, torch.float32),  # Lq != Lk
+    (1, 1, 1, 4, 1, 32, True, torch.float32),
+    (1, 100, 100, 4, 4, 256, True, torch.float32),
+    (2, 256, 256, 32, 4, 128, True, torch.bfloat16),  # yi-6b heads
+    (1, 65, 65, 16, 1, 128, True, torch.bfloat16),  # G = 16
+    (1, 130, 130, 32, 32, 80, True, torch.bfloat16),  # zamba2's D 80
+    (2, 200, 256, 24, 24, 64, False, torch.bfloat16),  # musicgen's cross
+    (1, 63, 63, 28, 4, 128, True, torch.bfloat16),  # G = 7
+    (1, 70, 70, 4, 2, 32, True, torch.bfloat16),
+    (1, 64, 64, 4, 4, 256, False, torch.bfloat16),
+    # the tensor-core variant at lengths ragged against its 64-row tiles and
+    # 32-row steps, one row, MQA, and the training phase's yi-6b heads
+    (2, 1, 1, 8, 2, 64, True, torch.bfloat16),
+    (1, 33, 33, 8, 1, 128, True, torch.bfloat16),
+    (2, 97, 97, 6, 3, 80, True, torch.bfloat16),
+    (1, 31, 70, 4, 2, 128, False, torch.bfloat16),
+    (1, 1024, 1024, 32, 4, 128, True, torch.bfloat16),
+]
+
+
+def _bwd_inputs(gen, case, device):
+    B, Lq, Lk, H, K, D, causal, dtype = case
+    q = _randn(gen, (B, H, Lq, D), dtype, device)
+    k = _randn(gen, (B, K, Lk, D), dtype, device)
+    v = _randn(gen, (B, K, Lk, D), dtype, device)
+    do = _randn(gen, (B, H, Lq, D), dtype, device)
+    return q, k, v, do
+
+
+def _hold_grad(out, ref, dtype, what):
+    """f32: relative to the largest gradient. bf16: 2 bf16 ulps a row and
+    the forward's 2e-2, which is 1.28 ulps of values in [2, 4); gradients
+    summed over a kv head's G heads reach past 4 (dv of yi-6b's key 0 sums 8
+    heads' probabilities), so for a largest value in [2**e, 2**(e+1)), e >=
+    2, the absolute limit doubles with each e past 1: 1.28 ulps at the
+    tensor's largest value. A row's scale is floored at 2**-8 of that
+    value: a gradient row can cancel to ~0 (causal query 0's dq is exactly
+    0: dP and delta are one product in two summation orders), and then
+    carries the f32 rounding of the terms it cancels, not of its own size;
+    for these unit-scale inputs the floor is at least 2**-10 (at L = 1 every
+    dq is such a residue)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    big = ref.abs().max().item()
+    if dtype == torch.float32:
+        assert err.max().item() <= 2e-5 * max(1.0, big), f"{what}: {err.max().item()}, max {big}"
+        return
+    top = ref.abs().amax(-1).clamp_min(max(big * 2.0**-8, 2.0**-10))
+    ulps = (err.amax(-1) / torch.exp2(torch.floor(torch.log2(top)) - 7)).max().item()
+    limit = 2e-2 * 2.0 ** max(0, math.floor(math.log2(big)) - 1)
+    assert err.max().item() <= limit and ulps <= 2, (
+        f"{what}: max err {err.max().item()} (limit {limit}, largest |ref| {big}), "
+        f"worst row {ulps} bf16 ulps (limit 2)")
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_lse_matches_plain(cuda, case):
+    """The forward kernel's log-sum-exp (both variants) against the plain
+    version's; the output is the same with and without it."""
+    B, Lq, Lk, H, K, D, causal, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v, _ = _bwd_inputs(gen, case, cuda)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, H, Lq) and lse.dtype == torch.float32
+    _, lse_ref = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_backward_kernel_matches_plain(cuda, case):
+    """dq, dk and dv against the plain backward from the same lse; two
+    launches give the same bits; each call counts one launch, on the
+    tensor-core variant for bf16 at head dims 64, 80 and 128."""
+    B, Lq, Lk, H, K, D, causal, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = _bwd_inputs(gen, case, cuda)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    kind = backward_variant(D, dtype)
+    assert kind == ("tc" if dtype == torch.bfloat16 and D in (64, 80, 128) else "simt")
+    counter = f"launches_{kind}"
+    before = (flash_attention_backward.launches, getattr(flash_attention_backward, counter))
+    grads = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    again = flash_attention_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before[0] + 2
+    assert getattr(flash_attention_backward, counter) == before[1] + 2
+    refs = flash_attention_backward_plain(q, k, v, out, lse, do, causal=causal)
+    for name, g, g2, ref, x in zip("qkv", grads, again, refs, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.equal(g, g2), f"d{name} differs between two launches"
+        _hold_grad(g, ref, dtype, f"d{name}")
+
+
+def test_flash_autograd_in_model_layout(cuda):
+    """``ops.flash_attention`` under autograd: the model's (B, L, H, D)
+    layout, strided views into the kernels, gradients against autograd
+    through the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, L, H, K, D = 2, 150, 8, 2, 64
+    leaves = [_randn(gen, (B, L, n, D), torch.float32, cuda).requires_grad_()
+              for n in (H, K, K)]
+    do = _randn(gen, (B, L, H, D), torch.float32, cuda)
+    before = flash_attention_backward.launches
+    out = ops.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert flash_attention_backward.launches == before + 1
+    heads = [t.detach().transpose(1, 2).requires_grad_() for t in leaves]
+    ref = flash_attention_plain(*heads, causal=True)
+    refs = torch.autograd.grad(ref, heads, do.transpose(1, 2))
+    for g, r in zip(grads, refs):
+        _hold_grad(g, r.transpose(1, 2), torch.float32, "grad")
+    assert out.grad_fn is not None
+
+
+def test_kernels_without_backward_refuse_grad(cuda):
+    """The SSD scan and paged decode have no backward kernel: under grad
+    they raise instead of returning outputs with no gradient; under
+    no_grad they run."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, log_a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 16, 8, torch.float32, torch.float32, cuda)
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="SSD scan's backward"):
+        ssd_scan(x, log_a, bm, cm)
+    with torch.no_grad():
+        ssd_scan(x, log_a, bm, cm)
+    q = _randn(gen, (2, 8, 64), torch.bfloat16, cuda).requires_grad_()
+    pages = _randn(gen, (4, 16, 2, 64), torch.bfloat16, cuda)
+    bt = torch.arange(4, dtype=torch.int32, device=cuda).view(2, 2)
+    lengths = torch.tensor([3, 20], dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="paged_attention"):
+        paged_attention(q, pages, pages, bt, lengths)
+    with torch.no_grad():
+        paged_attention(q, pages, pages, bt, lengths)
+
+
+def test_hybrid_loss_raises_on_the_card(cuda):
+    """``Model(zamba2).loss`` on the card raises, naming the SSD scan's
+    missing backward kernel, until that kernel lands."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config("zamba2-2.7b").reduced()
+    model = Model(cfg)
+    params = model.init(0, device=cuda)
+    for t in _tree_leaves(params):
+        t.requires_grad_()
+    tokens = torch.randint(0, cfg.vocab, (1, 64), device=cuda, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="SSD scan's backward"):
+        model.loss(params, {"tokens": tokens, "labels": tokens})
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
 
 
 SIM_DECODE_ARGS = ("t_limit", "busy", "now", "nact", "free", "occ", "pre", "sq", "inp",

@@ -261,7 +261,7 @@ def test_port_imports_without_jax():
     the reference package blocked."""
     root = SRC.parent
     scripts = sorted(root.glob("benchmarks/port_*.py")) + sorted(root.glob("examples/port_*.py"))
-    assert len(scripts) >= 12
+    assert len(scripts) >= 13
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -274,6 +274,11 @@ def test_port_imports_without_jax():
         "from repro_torch.traces import generate_trace_columns\n"
         "from repro_torch.kernels.sim_decode import decode_advance\n"
         "from repro_torch.core import *\n"
+        "from repro_torch.training import *\n"
+        "from repro_torch.checkpoint import Checkpointer\n"
+        "from repro_torch.launch.train import train\n"
+        "from repro_torch.distributed import StepTimer, SimulatedFailure, largest_mesh_shape\n"
+        "from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_backward\n"
         "for path in sys.argv[1:]:\n"
         "    if '/benchmarks/' in path:\n"
         "        importlib.import_module('benchmarks.' + path.rsplit('/', 1)[1][:-3])\n"

@@ -189,9 +189,13 @@ def test_table3_host_run_differs_in_named_fields(table3, fleet):
         assert host[k] == pytest.approx(jx[k], rel=0.05, abs=1), k
 
 
-def run_script(path: str, *args: str, reference: bool = False) -> str:
-    """A script's stdout; the reference's run with R1's alias set first."""
+def run_script(path: str, *args: str, reference: bool = False, threads: int = 0) -> str:
+    """A script's stdout; the reference's run with R1's alias set first;
+    ``threads`` caps the CPU threads of its math libraries (the test run's
+    other workers share the cores)."""
     env = {**os.environ, "PYTHONPATH": f"{ROOT / 'src'}{os.pathsep}{ROOT}"}
+    if threads:
+        env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = str(threads)
     if reference:
         code = (
             "import sys, runpy, jax, jax.experimental\n"
@@ -214,6 +218,21 @@ def test_example_prints_what_the_reference_prints(name):
     got = run_script(f"examples/port_{name}.py")
     assert want.strip()
     assert got == want.replace("examples/cost_planner.py", "examples/port_cost_planner.py")
+
+
+def test_train_example_trains_and_checkpoints(tmp_path):
+    """``examples/port_train_small.py --steps 2 --device cpu``: two steps
+    of the 100M model at its own batches (8 x 256), a finite final loss,
+    its last step checkpointed. It runs on one thread (41 s alone on an
+    8-core host, 70 s at four steps, 200 s at four steps beside the test
+    run's other workers): with torch's default of a thread per core, there,
+    four steps ran past the subprocess's 300 s limit."""
+    out = run_script("examples/port_train_small.py", "--steps", "2", "--device", "cpu",
+                     "--ckpt-dir", str(tmp_path), threads=1)
+    assert "[train] step 0: loss" in out
+    final = float(out.split("[example] final loss:")[1].split()[0])
+    assert np.isfinite(final)
+    assert sorted(os.listdir(tmp_path)) == ["step_00000002"]
 
 
 def test_serve_example_answers_every_request(capsys):
