@@ -7,8 +7,10 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 1. builds every CUDA kernel of the port from ``src/repro_torch/csrc`` into
    ``build/`` (one nvcc per source, all at once), prints the build time and
    each library's counts of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)
-   instructions in its SASS (``cuobjdump``); the flash library must have
-   HGMMA, the SSD scan's library one of the two. Then reads ``time_ms``'s own
+   instructions in its SASS (``cuobjdump``); the flash library and its
+   backward's must have HGMMA, the SSD scan's library one of the two; the
+   backward's wgmma kernels' registers and spills from ``ptxas -v``. Then
+   reads ``time_ms``'s own
    floor (a one-element fill under the same flush, sleep and events);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving paths give it (bf16; yi-6b's head_dim 128, zamba2's
@@ -22,8 +24,10 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    log-sum-exp and ``csrc/flash_attention_bwd.cu`` against their plain
    versions at yi-6b's heads (B 2, L 1024 and 2048), qwen3's G 16, zamba2's
    D 80, musicgen's non-causal 200 x 256 and one f32 shape; two launches
-   bit for bit; the kernel, the plain backward and SDPA's backward timed
-   (the library must have HMMA). Then training (``[train]``): 12 AdamW
+   bit for bit; the kernel, the plain backward and SDPA's backward timed;
+   at yi-6b's L 2048 and qwen3's rows the device ms of each of the three
+   launches (profiler), the schedule's head split and CTAs. Then training
+   (``[train]``): 12 AdamW
    steps of yi-6b at full width with 8 of its 32 layers (B 2 x L 2048,
    every layer rematerialized), the losses finite and falling, exactly two
    flash forwards and one tensor-core backward a layer and step (counters
@@ -176,6 +180,7 @@ from repro_torch.distributed.fault import SimulatedFailure  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    backward_schedule,
     backward_variant,
     flash_attention,
     flash_attention_backward,
@@ -297,7 +302,11 @@ SYNC_FREE_PROFILES = ("profile-moe", "profile-xlstm")
 #: printed on their own line, never in the kernels' JSON line.
 PRIOR_MS = {"flash_attention": 0.1287, "flash_attention_d80": 0.0835,
             "paged_attention": 0.0677, "paged_attention_d80": 0.0334,
-            "paged_attention_int8": 0.0626, "ssd_scan": 0.0695, "sim_decode": 0.0108}
+            "paged_attention_int8": 0.0626, "ssd_scan": 0.0695, "sim_decode": 0.0108,
+            "flash_attention_bwd": 2.1907, "flash_attention_bwd yi-6b L 1024": 0.8553,
+            "flash_attention_bwd qwen3 G 16 L 1024": 1.4859,
+            "flash_attention_bwd zamba2 D 80": 0.0627,
+            "flash_attention_bwd musicgen D 64": 0.0587}
 #: The paged rows: (name, slots, c_max); the long-pool row runs at yi-6b's
 #: widths only (bf16 and int8 pages).
 POOLS = (("short", 8, 512), ("long", 2, 2048))
@@ -354,6 +363,11 @@ FLASH_BWD = (
     ("musicgen-medium", 2, 24, 24, 64, 200, 256, False, torch.bfloat16),
     ("f32", 1, 8, 2, 64, 512, 512, True, torch.float32),
 )
+# The FLASH_BWD rows whose three launches (delta, dkdv, dq) ``[flash-bwd]``
+# times one by one from the profiler's device events, by (tag, Lq).
+FLASH_BWD_LAUNCHES = (("yi-6b", 2048), ("qwen3-235b-a22b", 1024))
+#: The backward's kernels by the names the profiler gives them.
+BWD_KERNEL_RE = r"::(delta|dkdv|dq)(_wgmma)?_kernel<"
 # The forward's log-sum-exp against the plain version's (f32 both; the
 # kernel sums exp2 of scaled scores in another order).
 LSE_TOL = 1e-4
@@ -1666,6 +1680,28 @@ def check_grad(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple[float, 
     return worst, ulps
 
 
+def bwd_launch_ms(args, causal: bool, calls: int = 5, tries: int = 3) -> dict:
+    """Device ms of each of the backward's launches (delta, dkdv, dq), the
+    mean over ``calls`` calls under the profiler. A profile that comes back
+    without the three kernels (a profile of this phase was seen to hold no
+    device events) is taken again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flash_attention_backward(*args, causal=causal)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.profiler.kineto_results.events():
+            m = re.search(BWD_KERNEL_RE, e.name())
+            if m and e.device_type() == torch.autograd.DeviceType.CUDA:
+                out[m.group(1)] = out.get(m.group(1), 0.0) + e.duration_ns() / 1e6 / calls
+        if set(out) == {"delta", "dkdv", "dq"}:
+            return out
+    fail(f"[flash-bwd] {tries} profiles show the backward's launches as {sorted(out)}")
+
+
 def flash_bwd_phase(dev, flush) -> dict:
     """``[flash-bwd]``: the forward's log-sum-exp and the backward kernel
     against their plain versions at the FLASH_BWD shapes, two launches
@@ -1712,6 +1748,15 @@ def flash_bwd_phase(dev, flush) -> dict:
                    variant=backward_variant(D, dtype),
                    max_abs_err=max(e for e, _ in errs), worst_row_ulps=max(u for _, u in errs),
                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd, bound_by=by)
+        if (tag, lq) in FLASH_BWD_LAUNCHES:
+            row["launch_ms"] = bwd_launch_ms(args, causal)
+            sched = backward_schedule(B, H, K, lq, lk, causal,
+                                      torch.cuda.get_device_properties(dev).multi_processor_count)
+            row.update(split=sched.split, dkdv_ctas=len(sched.items), dq_ctas=sched.dq_ctas)
+            print(f"[flash-bwd] {tag} B={B} H={H} K={K} L={lq}: device ms a launch "
+                  f"{ {k: round(v, 4) for k, v in row['launch_ms'].items()} }; head split "
+                  f"{sched.split} of G={H // K}, dkdv {len(sched.items)} CTAs, dq "
+                  f"{sched.dq_ctas} CTAs", flush=True)
         rows[(tag, lq)] = row
         print(f"[flash-bwd] {tag} B={B} H={H} K={K} D={D} Lq={lq} Lk={lk} "
               f"{'causal' if causal else 'non-causal'} {str(dtype)[6:]} variant {row['variant']}: "
@@ -1792,7 +1837,7 @@ def train_phase(dev) -> dict:
     kernels = device_activities(prof)
     busy_ms = sum(us for _, us in kernels.values()) / 1e3
     bwd_ms = sum(us for name, (_, us) in kernels.items()
-                 if re.search(r"::(delta|dkdv|dkdv_tc|dq|dq_tc)_kernel<", name)) / 1e3
+                 if re.search(BWD_KERNEL_RE, name)) / 1e3
     fwd_ms = sum(us for name, (_, us) in kernels.items() if "flash_tc_kernel" in name) / 1e3
     out = dict(
         launches_fwd=fwd, launches_bwd=bwd, losses=losses, step_ms=step_ms,
@@ -1896,6 +1941,24 @@ def train_restart_phase(dev) -> dict:
     return dict(start=resumed["start"], max_loss_diff=diff)
 
 
+def ptxas_kernels(report: str, pattern: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) of each entry function in a
+    ``ptxas -v`` report whose mangled name matches ``pattern``; the kernel
+    named ``<name><D>``."""
+    out = []
+    for chunk in report.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        if not re.search(pattern, mangled):
+            continue
+        name = re.search(r"\d+([a-z_]*" + pattern + r")", mangled)
+        dim = re.search(r"ILi(\d+)E", mangled)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((f"{name.group(1) if name else mangled}<{dim.group(1) if dim else '?'}>",
+                    int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0))
+    return out
+
+
 def sass_mma_counts() -> dict:
     """Each built library's counts of tensor-core instructions in its SASS:
     HGMMA (wgmma) and HMMA (mma.sync)."""
@@ -1945,8 +2008,14 @@ def main() -> None:
         fail("the flash_attention library has no HGMMA (wgmma) instruction")
     if not (mma["ssd_scan"]["HGMMA"] or mma["ssd_scan"]["HMMA"]):
         fail("the ssd_scan library has no HGMMA or HMMA (tensor-core) instruction")
-    if not mma["flash_attention_bwd"]["HMMA"]:
-        fail("the flash_attention_bwd library has no HMMA (mma.sync) instruction")
+    if not mma["flash_attention_bwd"]["HGMMA"]:
+        fail("the flash_attention_bwd library has no HGMMA (wgmma) instruction")
+    for name, regs, spill in ptxas_kernels(reports["flash_attention_bwd"], "wgmma_kernel"):
+        print(f"[build] flash_attention_bwd {name}: {regs} registers a thread at launch "
+              f"(setmaxnreg: producer 40, consumers 232), {spill} bytes of spill stores")
+    for line in reports["flash_attention_bwd"].splitlines():
+        if "Performance Loss" in line or "serialized" in line:
+            print(f"[build] flash_attention_bwd ptxas: {line.strip()}")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     floor = timing_floor(dev, flush)
@@ -2097,7 +2166,8 @@ def main() -> None:
               f"train {DENSE} ({TRAIN['layers']} of {get_config(DENSE).n_layers} layers), "
               f"{TRAIN['steps']} steps", trained["launches_bwd"], bwd_rows[(DENSE, TRAIN["seq"])],
               f"B={TRAIN['batch']} H=32 K=4 D=128 L={TRAIN['seq']} causal"))
-    kernels[-1]["variant"] = bwd_rows[(DENSE, TRAIN["seq"])]["variant"]
+    kernels[-1].update({key: bwd_rows[(DENSE, TRAIN["seq"])][key]
+                        for key in ("variant", "split", "dkdv_ctas", "dq_ctas", "launch_ms")})
     kernels.append(
         entry("sim_decode_telemetry", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
               f"DES routed Table-2 fleet, telemetry windows of {TELEMETRY['window']}",

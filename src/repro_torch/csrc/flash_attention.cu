@@ -45,6 +45,8 @@
 //   * Tensor maps are encoded on the host per call through the driver's
 //     cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint (the
 //     library links no libcuda), and passed as __grid_constant__ params.
+//     The tile layout, descriptors and map encoding are shared with the
+//     backward kernel (flash_tiles.cuh).
 //
 // Variant 0, CUDA cores (f32 inputs, and D = 32): the first version of this
 // kernel, kept for the reduced widths and f32 tests: one CTA per (batch,
@@ -57,33 +59,23 @@
 #include <cuda.h>
 
 #include "common.cuh"
+#include "flash_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
 
+using repro::encode;
+using repro::kmajor_desc;
 using repro::kNegInf;
 using repro::load16;
+using repro::MapOrder;
+using repro::set_smem_once;
 using repro::store;
+using repro::Strides;
+using repro::tma_load_tile;
+using repro::vmajor_desc;
 
 constexpr int kBlock = 64;  // query rows and key columns per tile
-
-// Sets a kernel's dynamic shared-memory cap once per device.
-template <typename Kernel>
-cudaError_t set_smem_once(Kernel kernel, int bytes, bool* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess && dev >= 0 && dev < 64) done[dev] = true;
-  return err;
-}
-
-// Element strides of one operand viewed as (B, heads, L, D), D contiguous.
-struct Strides {
-  long long b, h, l;
-};
 
 // ============================ variant 0: CUDA cores =========================
 
@@ -246,48 +238,10 @@ constexpr int kTcThreads = 160;  // consumer warpgroup + producer warp
 constexpr int kStages = 2;       // K/V ring depth
 
 template <int D>
-struct Tc {
-  static constexpr int SW = (D % 64 == 0) ? 128 : 32;  // swizzle span, bytes
-  static constexpr int MODE = SW == 128 ? 1 : 3;       // descriptor code
-  static constexpr int BOX = SW / 2;                   // bf16 columns a box
-  static constexpr int NB = D / BOX;                   // boxes per tile
-  static constexpr int BOX_BYTES = kBlock * SW;
-  static constexpr int TILE = kBlock * D * 2;          // bytes of a tile
-  static constexpr int SMEM = 1024 + TILE * (1 + 2 * kStages) + 64;
-  static_assert(D % BOX == 0 && D % 16 == 0, "head dim");
+struct Tc : repro::TileLayout<D> {
+  static constexpr int SMEM =
+      1024 + repro::TileLayout<D>::TILE * (1 + 2 * kStages) + 64;
 };
-
-// Descriptor of k-step kk (16 columns of D) of a K-major 64-row tile.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
-  using S = Tc<D>;
-  const uint32_t col = kk * 16;
-  const uint32_t addr =
-      tile + (col / S::BOX) * S::BOX_BYTES + (col % S::BOX) * 2;
-  return repro::wgmma_desc(addr, 16, 8 * S::SW, S::MODE);
-}
-
-// Descriptor of k-step kk (16 keys) of the V tile as the MN-major B of
-// P V: leading offset = next box along D, stride offset = next 8 keys.
-template <int D>
-__device__ __forceinline__ uint64_t vmajor_desc(uint32_t tile, int kk) {
-  using S = Tc<D>;
-  return repro::wgmma_desc(tile + kk * 16 * S::SW, S::BOX_BYTES, 8 * S::SW,
-                           S::MODE);
-}
-
-// Tensor-map coordinate order of one operand: which of dims 1..3 of the
-// map holds L, the head and the batch (dims sorted by stride).
-struct MapOrder {
-  int l, h, b;
-};
-
-__device__ __forceinline__ void coords(const MapOrder& ord, int l, int h,
-                                       int b, int* c) {
-  c[ord.l] = l;
-  c[ord.h] = h;
-  c[ord.b] = b;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -331,24 +285,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
   if (warp == 4) {  // producer: one lane issues every TMA load
     if (lane == 0) {
-      int c[4], cv[4];
-      coords(oq, q0, h, b, c);
       repro::mbar_expect_tx(q_full, S::TILE);
-      for (int i = 0; i < S::NB; ++i)
-        repro::tma_load_4d(sq + i * S::BOX_BYTES, &tq, q_full, i * S::BOX,
-                           c[1], c[2], c[3]);
+      tma_load_tile<D>(sq, &tq, oq, q_full, q0, h, b);
       for (int kb = 0; kb < n_kb; ++kb) {
         const int s = kb % kStages;
         if (kb >= kStages) repro::mbar_wait(&empty[s], ((kb / kStages) - 1) & 1);
         repro::mbar_expect_tx(&full[s], 2 * S::TILE);
-        coords(ok, kb * kBlock, kvh, b, c);
-        coords(ov, kb * kBlock, kvh, b, cv);
-        for (int i = 0; i < S::NB; ++i) {
-          repro::tma_load_4d(sk + s * S::TILE + i * S::BOX_BYTES, &tk,
-                             &full[s], i * S::BOX, c[1], c[2], c[3]);
-          repro::tma_load_4d(sv + s * S::TILE + i * S::BOX_BYTES, &tv,
-                             &full[s], i * S::BOX, cv[1], cv[2], cv[3]);
-        }
+        tma_load_tile<D>(sk + s * S::TILE, &tk, ok, &full[s], kb * kBlock, kvh, b);
+        tma_load_tile<D>(sv + s * S::TILE, &tv, ov, &full[s], kb * kBlock, kvh, b);
       }
     }
     return;
@@ -477,70 +421,6 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           __floats2bfloat162_rn(oacc[4 * j + 2] * inv1,
                                 oacc[4 * j + 3] * inv1);
   }
-}
-
-// cuTensorMapEncodeTiled's signature (CUDA driver API, cuda.h).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over one bf16 operand viewed as (B, heads, L, D): dim 0 is D,
-// dims 1..3 are L, the head and the batch in increasing stride. A box is
-// BOX columns of 64 rows of one head of one batch.
-template <int D>
-cudaError_t encode(CUtensorMap* map, MapOrder* ord, const void* ptr,
-                   Strides st, int B, int heads, int L) {
-  using S = Tc<D>;
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  struct Dim {
-    long long stride;
-    int size, box, which;  // which: 0 = L, 1 = head, 2 = batch
-  } dims[3] = {{st.l, L, kBlock, 0}, {st.h, heads, 1, 1}, {st.b, B, 1, 2}};
-  for (int i = 1; i < 3; ++i)  // insertion sort by stride
-    for (int j = i; j > 0 && dims[j].stride < dims[j - 1].stride; --j) {
-      const Dim t = dims[j];
-      dims[j] = dims[j - 1];
-      dims[j - 1] = t;
-    }
-  cuuint64_t size[4] = {(cuuint64_t)D, 0, 0, 0};
-  cuuint64_t stride[3];
-  cuuint32_t box[4] = {(cuuint32_t)S::BOX, 0, 0, 0};
-  cuuint32_t estride[4] = {1, 1, 1, 1};
-  int* slot[3] = {&ord->l, &ord->h, &ord->b};
-  for (int i = 0; i < 3; ++i) {
-    size[i + 1] = (cuuint64_t)dims[i].size;
-    stride[i] = (cuuint64_t)dims[i].stride * 2;
-    box[i + 1] = (cuuint32_t)dims[i].box;
-    *slot[dims[i].which] = i + 1;
-  }
-  const CUresult r = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), size,
-      stride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      S::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>

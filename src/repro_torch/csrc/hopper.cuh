@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels, as inline
 // PTX: mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma instructions the flash kernel issues, and 16-byte cp.async.
+// wgmma instructions the flash kernels issue, setmaxnreg, and 16-byte
+// cp.async.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (the type only; no driver symbol is linked)
@@ -102,6 +103,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups of this warpgroup are
+// pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keeps the compiler from moving reads or writes of an accumulator
 // register across the asynchronous wgmma that owns it.
@@ -277,6 +284,17 @@ template <>
 __device__ __forceinline__ void wgmma_rs_tb<256>(float* d, const uint32_t* a,
                                                  uint64_t db, int accumulate) {
   wgmma_rs_n256_tb(d, a, db, accumulate);
+}
+
+// ---- register reallocation (every warp of a warpgroup executes it) ------
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 }  // namespace repro

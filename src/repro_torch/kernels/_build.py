@@ -46,8 +46,10 @@ SIGNATURES = {
     "flash_attention_bwd": (
         "flash_attention_bwd",
         # q, k, v, o, dO, lse, delta (scratch), dq, dk, dv, B, H, KH, Lq, Lk,
-        # D, causal, scale, dtype, host array of 24 element strides, stream
-        [_P] * 10 + [_I] * 7 + [_F, _I, _P, _P],
+        # D, causal, scale, dtype, host array of 24 element strides, the
+        # dkdv work list (device int32, null for the CUDA-core variant),
+        # its items, the split, stream
+        [_P] * 10 + [_I] * 7 + [_F, _I, _P, _P, _I, _I, _P],
     ),
     "paged_attention": (
         "paged_attention_fwd",

@@ -25,7 +25,11 @@ its backward, :func:`flash_attention_backward`, which launches
 :func:`flash_attention_backward_plain` on CPU tensors; each backward call
 counts one on ``flash_attention_backward.launches`` and on its variant's
 counter (:func:`backward_variant`: tensor cores for bf16 at head dims 64,
-80 and 128, CUDA cores otherwise). The reference has no
+80 and 128, CUDA cores otherwise). The tensor-core backward's dK/dV launch
+takes a work list from :func:`backward_schedule`, a pure function of the
+shape and the card's SM count (cached per shape, and its device copy per
+shape and device): how many groups each kv head's query heads are split
+into, and the order of the items, longest first. The reference has no
 Pallas backward: it differentiates its jnp attention
 (``repro.models.layers.flash_attention``) with ``jax.grad``.
 """
@@ -34,7 +38,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -42,6 +48,91 @@ from repro_torch.kernels import _build
 
 SUPPORTED_HEAD_DIMS = (32, 64, 80, 128, 256)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The tensor-core backward's tiles: a dK/dV work item is 128 keys (64 a
+#: consumer warpgroup) walking query tiles of 64 rows; a dQ CTA is 128
+#: query rows.
+BWD_KEY_TILE = 128
+BWD_QUERY_TILE = 64
+BWD_DQ_ROWS = 128
+#: The most CTAs that split one kv head's query heads (one cluster: the
+#: kernel's portable cluster size).
+BWD_MAX_SPLIT = 8
+#: What the schedule charges a work item beyond its query tiles, in tiles:
+#: K and V's load and the stores, and the cluster's combine when split.
+BWD_ITEM_COST = 3
+BWD_COMBINE_COST = 2
+
+
+class BackwardSchedule(NamedTuple):
+    """The tensor-core backward's dK/dV grid for one shape."""
+
+    split: int  #: groups (CTAs of one cluster) each kv head's query heads take
+    #: (batch, kv head, key tile, first query head, one past the last), the
+    #: ``split`` groups of one key tile consecutive, longest first
+    items: tuple[tuple[int, int, int, int, int], ...]
+    dq_ctas: int  #: CTAs of the dQ launch
+
+
+def head_groups(g: int, split: int) -> list[tuple[int, int]]:
+    """``split`` contiguous groups of ``g`` query heads, sizes differing by at
+    most one: [(first, one past the last), ...]."""
+    return [(i * g // split, (i + 1) * g // split) for i in range(split)]
+
+
+def _list_schedule(costs: list[int], n_sm: int) -> int:
+    """The finish time of the busiest SM when each item in order goes to the
+    SM that frees first (how the hardware hands out a grid's CTAs)."""
+    sms = [0] * n_sm
+    for c in costs:
+        heapq.heappush(sms, heapq.heappop(sms) + c)
+    return max(sms)
+
+
+@functools.lru_cache(maxsize=None)
+def backward_schedule(B: int, H: int, KH: int, Lq: int, Lk: int, causal: bool,
+                      n_sm: int) -> BackwardSchedule:
+    """The dK/dV launch's work list: each (batch, kv head, 128-key tile) is
+    cut into ``split`` groups of its kv head's G = H / KH query heads (uneven
+    where ``split`` does not divide G), one CTA each; their f32 partials
+    are summed in group order inside the kernel's cluster. Causal key tile
+    t walks the query tiles from 2 t on, so the items are ordered by the
+    tiles they walk, longest first (stable in batch, kv head, key tile).
+    ``split`` (1 to ``min(G, 8)``) is the one whose list schedule on
+    ``n_sm`` SMs (one CTA an SM) finishes first, the smallest on a tie."""
+    g = H // KH
+    n_qt = -(-Lq // BWD_QUERY_TILE)
+    n_kt = -(-Lk // BWD_KEY_TILE)
+
+    def walked(kt: int) -> int:
+        return n_qt - 2 * kt if causal else n_qt
+
+    units = sorted(((b, kvh, kt) for b in range(B) for kvh in range(KH) for kt in range(n_kt)),
+                   key=lambda u: -walked(u[2]))
+    best = None
+    for split in range(1, min(g, BWD_MAX_SPLIT) + 1):
+        extra = BWD_ITEM_COST + (BWD_COMBINE_COST if split > 1 else 0)
+        groups = head_groups(g, split)
+        costs = [(hi - lo) * walked(kt) + extra for _, _, kt in units for lo, hi in groups]
+        span = _list_schedule(costs, n_sm)
+        if best is None or span < best[0]:
+            best = (span, split)
+    groups = head_groups(g, best[1])
+    items = tuple((b, kvh, kt, kvh * g + lo, kvh * g + hi)
+                  for b, kvh, kt in units for lo, hi in groups)
+    return BackwardSchedule(split=best[1], items=items, dq_ctas=B * H * -(-Lq // BWD_DQ_ROWS))
+
+
+@functools.lru_cache(maxsize=None)
+def _work_list(schedule: BackwardSchedule, device: torch.device) -> torch.Tensor:
+    """A schedule's items as the kernel reads them: int32 (n, 5) on the
+    card, copied once per shape and device."""
+    return torch.tensor(schedule.items, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
@@ -165,7 +256,8 @@ def variant(head_dim: int, dtype: torch.dtype) -> str:
 @functools.lru_cache(maxsize=None)
 def backward_variant(head_dim: int, dtype: torch.dtype) -> str:
     """The backward kernel's variant for a call, as its C entry point
-    decides: ``"tc"`` (mma.sync) or ``"simt"``. Builds the library."""
+    decides: ``"tc"`` (wgmma on TMA-fed tiles) or ``"simt"``. Builds the
+    library."""
     fn = _build.library("flash_attention_bwd").flash_attention_bwd_variant
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     code = fn(head_dim, DTYPE_CODES[dtype])
@@ -235,7 +327,8 @@ def flash_attention_backward(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of head-major attention: the backward kernel on CUDA,
     :func:`flash_attention_backward_plain` on the CPU. The gradients take
-    the layouts of q, k and v (``empty_like``)."""
+    the layouts of q, k and v (``empty_like``). The tensor-core variant runs
+    :func:`backward_schedule`'s work list for the shape."""
     if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal)
     _check(q, k, v, causal)
@@ -252,6 +345,11 @@ def flash_attention_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
     kind = backward_variant(d, q.dtype)
+    work, n_work, split = 0, 0, 1
+    if kind == "tc":
+        sched = backward_schedule(b, h, n_kv, lq, lk, causal, _sm_count(q.device))
+        work, n_work, split = (_work_list(sched, q.device).data_ptr(), len(sched.items),
+                               sched.split)
     strides = (ctypes.c_longlong * 24)(
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in _strides(t))
     )
@@ -260,7 +358,7 @@ def flash_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, h, n_kv, lq, lk, d, int(causal), 1.0 / math.sqrt(d), DTYPE_CODES[q.dtype],
-        strides, torch.cuda.current_stream(q.device).cuda_stream,
+        strides, work, n_work, split, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check("flash_attention_bwd", code)
     flash_attention_backward.launches += 1

@@ -20,8 +20,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention,
+    backward_schedule,
     flash_attention,
     flash_attention_backward,
     flash_attention_backward_plain,
@@ -145,3 +147,61 @@ def test_bf16_gradients_keep_their_dtypes():
         top = r.abs().max().item()
         torch.testing.assert_close(g.float(), r, atol=4 * 2.0 ** (np.floor(np.log2(top)) - 7),
                                    rtol=0)
+
+
+# The tensor-core backward's dK/dV work list (``backward_schedule``): batch
+# 1 or 2, G = H / K of 1, 5, 7, 8, 16 and 48, causal at L 1000 (ragged
+# against the 64- and 128-row tiles) or full attention of 300 queries
+# against 1000 keys, on an H100's 132 SMs.
+SCHEDULE_CASES = [(B, G, causal) for B in (1, 2) for G in (1, 5, 7, 8, 16, 48)
+                  for causal in (True, False)]
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES,
+                         ids=[f"B{b}-G{g}-{'causal' if c else 'full'}" for b, g, c in SCHEDULE_CASES])
+def test_backward_schedule_covers_every_item_once(case):
+    """Every (batch, kv head, key tile, head group) appears exactly once; a
+    key tile's groups are consecutive in group order (one cluster, rank =
+    group) and cover its kv head's G heads, with sizes differing by at most
+    one; causal items come longest first; the same arguments give the same
+    list; the device copy is what the kernel reads."""
+    B, G, causal = case
+    K = 1 if G == 48 else 2
+    H, Lk = G * K, 1000
+    Lq = Lk if causal else 300
+    sched = backward_schedule(B, H, K, Lq, Lk, causal, 132)
+    split, items = sched.split, sched.items
+    n_kt, n_qt = -(-Lk // 128), -(-Lq // 64)
+    assert 1 <= split <= min(G, 8) and len(items) % split == 0
+    keys = [(b, kvh, kt, lo, hi) for b, kvh, kt, lo, hi in items]
+    assert len(set(keys)) == len(keys) == B * K * n_kt * split
+    units = set()
+    for i in range(0, len(items), split):
+        cluster = items[i:i + split]
+        b, kvh, kt = cluster[0][:3]
+        assert all(it[:3] == (b, kvh, kt) for it in cluster)
+        units.add((b, kvh, kt))
+        bounds = [(lo, hi) for *_, lo, hi in cluster]
+        assert bounds[0][0] == kvh * G and bounds[-1][1] == (kvh + 1) * G
+        assert all(a[1] == c[0] for a, c in zip(bounds, bounds[1:]))
+        sizes = [hi - lo for lo, hi in bounds]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert units == {(b, kvh, kt) for b in range(B) for kvh in range(K) for kt in range(n_kt)}
+    walked = [n_qt - 2 * it[2] if causal else n_qt for it in items]
+    assert all(a >= b for a, b in zip(walked, walked[1:]))
+    assert sched.dq_ctas == B * H * -(-Lq // 128)
+    assert backward_schedule.__wrapped__(B, H, K, Lq, Lk, causal, 132) == sched
+    work = flash_mod._work_list(sched, torch.device("cpu"))
+    assert work.dtype == torch.int32 and work.tolist() == [list(it) for it in items]
+
+
+def test_backward_schedule_fills_the_card():
+    """The split follows the card: one SM gets one group a key tile; more
+    SMs than key tiles split the heads, unevenly where the best count does
+    not divide G (llama4-scout's G 5 at B 2, L 300 takes 3 groups on 132
+    SMs, qwen3's G 16 at L 1024 takes 8)."""
+    assert backward_schedule(2, 40, 8, 300, 300, True, 1).split == 1
+    assert backward_schedule(2, 40, 8, 300, 300, True, 132).split == 3
+    assert backward_schedule(1, 64, 4, 1024, 1024, True, 132).split == 8
+    yi = backward_schedule(2, 32, 4, 2048, 2048, True, 132)
+    assert yi.split == 2 and len(yi.items) == 256 and yi.dq_ctas == 1024

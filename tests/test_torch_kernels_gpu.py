@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttention,
+    backward_schedule,
     backward_variant,
     flash_attention,
     flash_attention_backward,
@@ -417,6 +418,15 @@ FLASH_BWD_CASES = [
     (2, 97, 97, 6, 3, 80, True, torch.bfloat16),
     (1, 31, 70, 4, 2, 128, False, torch.bfloat16),
     (1, 1024, 1024, 32, 4, 128, True, torch.bfloat16),
+    # the wgmma variant's grid and ring: G 48 on one kv head (granite-34b,
+    # split 8), G 5 in uneven head groups (llama4-scout; split 3 on 132
+    # SMs), qwen3's G 16, L 1000 ragged against the 64/128-row tiles and
+    # the ring's stages (G 7, split 4), non-causal Lq 130 x Lk 300 at D 80
+    (1, 512, 512, 48, 1, 128, True, torch.bfloat16),
+    (2, 300, 300, 40, 8, 128, True, torch.bfloat16),
+    (1, 1024, 1024, 64, 4, 128, True, torch.bfloat16),
+    (2, 1000, 1000, 28, 4, 128, True, torch.bfloat16),
+    (1, 130, 300, 8, 2, 80, False, torch.bfloat16),
 ]
 
 
@@ -495,6 +505,18 @@ def test_flash_backward_kernel_matches_plain(cuda, case):
         _hold_grad(g, ref, dtype, f"d{name}")
 
 
+def test_flash_backward_schedule_on_the_card(cuda):
+    """The card's SM count gives the shapes above the head splits their
+    comments name: uneven groups at G 5 and 7, eight groups at G 16 and 48."""
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for (B, L, H, K), want in (((2, 300, 40, 8), 3), ((2, 1000, 28, 4), 4),
+                               ((1, 1024, 64, 4), 8), ((1, 512, 48, 1), 8)):
+        split = backward_schedule(B, H, K, L, L, True, n_sm).split
+        if n_sm == 132:  # an H100 SXM
+            assert split == want, (B, L, H, K, split)
+        assert 1 <= split <= min(H // K, 8)
+
+
 def test_flash_autograd_in_model_layout(cuda):
     """``ops.flash_attention`` under autograd: the model's (B, L, H, D)
     layout, strided views into the kernels, gradients against autograd
@@ -514,6 +536,30 @@ def test_flash_autograd_in_model_layout(cuda):
     for g, r in zip(grads, refs):
         _hold_grad(g, r.transpose(1, 2), torch.float32, "grad")
     assert out.grad_fn is not None
+
+
+def test_flash_autograd_in_model_layout_bf16(cuda):
+    """The bf16 twin at D 128: ``ops.flash_attention`` under autograd hands
+    strided (B, L, H, D) views of q, k, v and dO to the tensor-core
+    backward's TMA maps; the gradients are held against the plain backward
+    from the same forward output and lse, as the kernel rows are."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    B, L, H, K, D = 2, 300, 8, 2, 128
+    dt = torch.bfloat16
+    leaves = [_randn(gen, (B, L, n, D), dt, cuda).requires_grad_() for n in (H, K, K)]
+    do = _randn(gen, (B, L, H, D), dt, cuda)
+    before = (flash_attention_backward.launches, flash_attention_backward.launches_tc)
+    out = ops.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (flash_attention_backward.launches, flash_attention_backward.launches_tc) == (
+        before[0] + 1, before[1] + 1)
+    heads = [t.detach().transpose(1, 2) for t in leaves]
+    o, lse = flash_attention(*heads, causal=True, return_lse=True)
+    refs = flash_attention_backward_plain(*heads, o, lse, do.transpose(1, 2), causal=True)
+    for name, g, r in zip("qkv", grads, refs):
+        assert g.shape == (B, L, H if name == "q" else K, D) and g.dtype == dt
+        _hold_grad(g.transpose(1, 2), r, dt, f"d{name}")
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
