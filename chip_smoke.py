@@ -37,6 +37,25 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    autograd through the plain attention; ``[train-restart]``:
    ``launch.train.train`` on reduced yi-6b with an injected failure,
    resumed at its checkpoint;
+2c. the SSD scan's backward (``[ssd-bwd]``): ``csrc/ssd_scan_bwd.cu``
+   against ``ssd_scan_backward_plain`` at zamba2's widths (B 2 x L 2048,
+   the training shape; L 256; a ragged L 200), bf16 B/C, a nonzero
+   final-state gradient, both on the kernel forward's chunk states; two
+   launches bit for bit; kernel, plain and bound ms and the CTAs of its two
+   launches; the forward's ms with and without the chunk states, y bit for
+   bit equal. Then ``[train-hybrid]``: 12 AdamW steps of zamba2-2.7b at
+   full width with 12 of its 54 Mamba-2 blocks (two groups, both shared
+   attention blocks), B 2 x L 2048, remat full, w_q/w_k tempered; the
+   losses finite and falling, exactly two SSD forwards and one SSD
+   backward a block and step, two flash forwards and one tensor-core
+   backward an attention invocation and step (counters set to 0 just
+   before, read just after); step time, tokens/s, peak memory and one
+   profiled step's kernels, busy share and the SSD launches' shares;
+   ``[train-hybrid-grad]``: one group's loss and gradient leaves through
+   the kernels against autograd through the plain SSD scan and attention
+   (f32 within 2e-2 rel L2 a leaf; bf16 no farther from the f32 gradients
+   than the plain path plus 2e-2). ``[flash-bwd]`` has a row at zamba2's
+   training shape too;
 3. serves 16 requests through the port's ``TwoPoolServer`` on full-width
    yi-6b (random bf16 weights from a seed): short pool c_max 512 with 8
    slots, long pool c_max 2048 with 2 slots. The kernels' launch counters
@@ -141,17 +160,22 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    on the qwen3 serve's path, ``_g5`` on the scout run's; ``_g7`` on the
    qwen2-vl run's, ``_d64`` and ``_cross`` on the musicgen run's;
    ``sim_decode_telemetry`` with the telemetry run's launches;
-   ``flash_attention_bwd`` with the ``[train]`` run's launches), the card's name
+   ``flash_attention_bwd`` with the ``[train]`` run's launches,
+   ``flash_attention_bwd_d80`` and ``ssd_scan_bwd`` with
+   ``[train-hybrid]``'s), the card's name
    and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
-Each phase ends with a ``[time]`` line, the seconds since the script
-started. Any failed phase raises, so the script exits non-zero and prints no result;
+Phase 2c (the SSD backward's rows and zamba2's training) runs with the
+other training phases, before serving and the DES phases, in the same
+process. Each phase ends with a ``[time]`` line, the seconds since
+the script started. Any failed phase raises, so the script exits non-zero and prints no result;
 so does a machine without a GPU, and a directory without the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -198,7 +222,15 @@ from repro_torch.kernels.sim_decode import (  # noqa: E402
     decode_advance_plain,
     random_state,
 )
-from repro_torch.kernels.ssd_scan import P_TILE, ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    KERNEL_CHUNK,
+    P_TILE,
+    ssd_scan,
+    ssd_scan_backward,
+    ssd_scan_backward_plain,
+    ssd_scan_plain,
+)
 from repro_torch.launch.serve import run_workload, serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -314,10 +346,11 @@ LONG_POOL = ("long64k", 2, 65_536)
 
 # The paper's Table 2 fleet (1,000 req/s, B_short = 8192) on the DES.
 # ``requests`` is the routed run's trace length, ``cross`` the
-# CUDA-against-CPU trace's and the homogeneous run's (the shorter trace
-# keeps the whole script, grid phase included, near 750 s), ``profile`` the
-# profiled run's.
-DES = dict(trace="azure", rate=1000.0, seed=0, b_short=8192, requests=10_000, cross=2_000,
+# CUDA-against-CPU trace's and the homogeneous run's, ``profile`` the
+# profiled run's. The shorter traces here and in GRID keep the whole script
+# inside its 1200 s on a slow host: with 2,000-request cross and grid
+# traces it read 1015.7 s on one H100 host and 1232.6 s on another.
+DES = dict(trace="azure", rate=1000.0, seed=0, b_short=8192, requests=10_000, cross=1_000,
            profile=1_000)
 # sim_decode's bytes per slot and per (pool, instance) row, from the dtypes:
 # in occ 1, pre sq inp gen rem blk 4 each, ft 8, tr 1; out pre gen rem 4
@@ -336,9 +369,9 @@ SIM_DECODE_SLOT_OPS = 40
 # device busy share is read on a ``profile``-request trace of the same spec
 # (the profiler's own reading takes ~65 ms a round here, so a full run's
 # would cost minutes).
-GRID = dict(fig6_requests=2000, fig6_rate=20.0, fig6_seed=42,
-            fig6_thresholds=(2048, 4096, 8192, 16_384, 32_768), cross=1000,
-            requests=2000, ladders=(1, 4, 16), profile=250)
+GRID = dict(fig6_requests=500, fig6_rate=20.0, fig6_seed=42,
+            fig6_thresholds=(2048, 4096, 8192, 16_384, 32_768), cross=500,
+            requests=500, ladders=(1, 4, 16), profile=100)
 # Windowed telemetry (``[telemetry]``): the routed Table-2 run of ``[des]``
 # with windows of ``window`` dispatched requests; the card-against-CPU
 # check on a ``cross``-request trace of the same spec, the short pool cut
@@ -354,18 +387,20 @@ TABLE2_DES = (72, 224, 355)
 # causal, dtype). yi-6b's heads at the training phase's B 2 and L 2048 and
 # at L 1024, qwen3's GQA group of 16, zamba2's D 80 MHA, musicgen's D 64
 # cross-attention (200 queries, 256 memory positions, non-causal), and one
-# f32 shape (the CUDA-core forward).
+# f32 shape (the CUDA-core forward); zamba2's D 80 at L 256 and at
+# ``[train-hybrid]``'s B 2 x L 2048.
 FLASH_BWD = (
     ("yi-6b", 2, 32, 4, 128, 1024, 1024, True, torch.bfloat16),
     ("yi-6b", 2, 32, 4, 128, 2048, 2048, True, torch.bfloat16),
     ("qwen3-235b-a22b", 1, 64, 4, 128, 1024, 1024, True, torch.bfloat16),
     ("zamba2-2.7b", 1, 32, 32, 80, 256, 256, True, torch.bfloat16),
+    ("zamba2-2.7b", 2, 32, 32, 80, 2048, 2048, True, torch.bfloat16),
     ("musicgen-medium", 2, 24, 24, 64, 200, 256, False, torch.bfloat16),
     ("f32", 1, 8, 2, 64, 512, 512, True, torch.float32),
 )
 # The FLASH_BWD rows whose three launches (delta, dkdv, dq) ``[flash-bwd]``
 # times one by one from the profiler's device events, by (tag, Lq).
-FLASH_BWD_LAUNCHES = (("yi-6b", 2048), ("qwen3-235b-a22b", 1024))
+FLASH_BWD_LAUNCHES = (("yi-6b", 2048), ("qwen3-235b-a22b", 1024), ("zamba2-2.7b", 2048))
 #: The backward's kernels by the names the profiler gives them.
 BWD_KERNEL_RE = r"::(delta|dkdv|dq)(_wgmma)?_kernel<"
 # The forward's log-sum-exp against the plain version's (f32 both; the
@@ -388,6 +423,36 @@ TRAIN = dict(layers=8, batch=2, seq=2048, steps=12, peak_lr=1e-3, remat="full",
 # and the outputs at different points, and every bf16 rounding is 2**-8
 # relative; two layers keep that within a percent or two.
 GRAD_REL_TOL = 2e-2
+# ``[train-hybrid-grad]``: zamba2 at full width, the kernels' path against
+# the plain one. In f32 each leaf (and the loss) is held to HYBRID_F32_TOL,
+# six times the worst leaf read on an H100 (1.59e-5): a backward that lost
+# f32 accuracy (bf16 internals read ~2**-9 relative) fails it. In bf16 each
+# leaf's distance from the f32 plain gradient through the kernels may
+# exceed the plain path's by HYBRID_BF16_EXCESS, 2.6 times the worst excess
+# read (0.0039); the phase prints the excess of a control, the kernels'
+# path with the SSD backward's dx and dlog_a rounded to bf16, beside it.
+HYBRID_F32_TOL = 1e-4
+HYBRID_BF16_EXCESS = 1e-2
+HYBRID_BF16_LOSS_TOL = 1e-3
+# ``[ssd-bwd]``: the SSD scan's backward kernel against its plain version at
+# zamba2's widths (H 80 SSM heads, P = N = 64): (B, L) at the training
+# phase's B 2 x L 2048, a prompt of 256 and a ragged 200; bf16 B/C as the
+# model gives them, f32 x and dy, a nonzero final-state gradient. Both read
+# the kernel forward's chunk states; dx and dlog_a (f32) are held to
+# F32_GRAD_TOL of their largest value, dB and dC (bf16, each an f32 sum over
+# 80 heads rounded once) as ``check_grad`` holds bf16 gradients.
+SSD_BWD = ((2, 2048), (1, 256), (1, 200))
+# ``[train-hybrid]``: zamba2 at full width with ``layers`` of its 54 Mamba-2
+# blocks (``layers // attn_every`` groups, so both shared attention blocks
+# and their LoRAs), the rest as ``[train]``. ``[train-hybrid-grad]``: one
+# group (6 blocks, one shared attention invocation) at ``grad_batch`` x
+# ``grad_seq``.
+TRAIN_HYBRID = dict(layers=12, batch=2, seq=2048, steps=12, peak_lr=1e-3, remat="full",
+                    grad_layers=6, grad_batch=1, grad_seq=1024)
+#: The SSD backward's kernels by the names the profiler gives them, and the
+#: forward's.
+SSD_BWD_KERNEL_RE = r"::(state|chunk)_kernel<"
+SSD_FWD_KERNEL_RE = r"ssd_scan_kernel<"
 
 
 def fail(msg: str) -> None:
@@ -706,6 +771,7 @@ def reset_counters() -> None:
     for fn in COUNTERS.values():
         fn.launches = 0
     flash_mod.reset_counters()
+    ssd_mod.reset_counters()
 
 
 def serve_phase(arch: str, kernels: tuple[str, ...], tag: str) -> dict:
@@ -1680,11 +1746,13 @@ def check_grad(out: torch.Tensor, ref: torch.Tensor, what: str) -> tuple[float, 
     return worst, ulps
 
 
-def bwd_launch_ms(args, causal: bool, calls: int = 5, tries: int = 3) -> dict:
+def bwd_launch_ms(args, causal: bool, calls: int = 5, tries: int = 3) -> dict | None:
     """Device ms of each of the backward's launches (delta, dkdv, dq), the
     mean over ``calls`` calls under the profiler. A profile that comes back
-    without the three kernels (a profile of this phase was seen to hold no
-    device events) is taken again, up to ``tries`` times."""
+    without the three kernels is taken again, up to ``tries`` times; then
+    the split is not measured (None). One run on an H100 saw every profile
+    of this phase after its first come back without device events (PERF.md
+    §7); the split is a measurement and gates nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -1699,7 +1767,9 @@ def bwd_launch_ms(args, causal: bool, calls: int = 5, tries: int = 3) -> dict:
                 out[m.group(1)] = out.get(m.group(1), 0.0) + e.duration_ns() / 1e6 / calls
         if set(out) == {"delta", "dkdv", "dq"}:
             return out
-    fail(f"[flash-bwd] {tries} profiles show the backward's launches as {sorted(out)}")
+    print(f"[flash-bwd] per-launch split not measured: {tries} profiles show the backward's "
+          f"launches as {sorted(out)}", flush=True)
+    return None
 
 
 def flash_bwd_phase(dev, flush) -> dict:
@@ -1753,8 +1823,9 @@ def flash_bwd_phase(dev, flush) -> dict:
             sched = backward_schedule(B, H, K, lq, lk, causal,
                                       torch.cuda.get_device_properties(dev).multi_processor_count)
             row.update(split=sched.split, dkdv_ctas=len(sched.items), dq_ctas=sched.dq_ctas)
+            split = row["launch_ms"] and {k: round(v, 4) for k, v in row["launch_ms"].items()}
             print(f"[flash-bwd] {tag} B={B} H={H} K={K} L={lq}: device ms a launch "
-                  f"{ {k: round(v, 4) for k, v in row['launch_ms'].items()} }; head split "
+                  f"{split or 'not measured'}; head split "
                   f"{sched.split} of G={H // K}, dkdv {len(sched.items)} CTAs, dq "
                   f"{sched.dq_ctas} CTAs", flush=True)
         rows[(tag, lq)] = row
@@ -1941,6 +2012,309 @@ def train_restart_phase(dev) -> dict:
     return dict(start=resumed["start"], max_loss_diff=diff)
 
 
+def ssd_bwd_phase(dev, flush) -> dict:
+    """``[ssd-bwd]``: the SSD scan's backward kernel against
+    ``ssd_scan_backward_plain`` at SSD_BWD's shapes (zamba2's widths, bf16
+    B/C, f32 x and dy, a nonzero final-state gradient; both from the kernel
+    forward's chunk states), two launches bit for bit, the kernel, plain and
+    bound ms and the CTAs of its two launches. At the training shape the
+    forward's ms with the chunk states written and without, y and the final
+    state bit for bit equal between the two. The bound counts the bytes the
+    function must move (x, dy and the chunk states read, dx written in f32;
+    log_a, B, C, the final state's gradient, dlog_a, dB, dC) and its fewest
+    FLOPs at the TF32 tensor-core rate over three passes, as ``[ssd_scan]``
+    does, beside the f32 CUDA-core bound."""
+    cfg = get_config(HYBRID)
+    H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    rows = {}
+    for B, L in SSD_BWD:
+        gen = torch.Generator(device=dev).manual_seed(13)
+        dt = torch.rand((B, H, L), generator=gen, device=dev) * 0.19 + 0.01
+        a = -(torch.rand((H,), generator=gen, device=dev) * 1.5 + 0.5)
+        x = torch.randn((B, H, L, P), generator=gen, device=dev) * dt[..., None]
+        log_a = (a[None, :, None] * dt).contiguous()
+        bm = torch.randn((B, L, N), generator=gen, device=dev).to(torch.bfloat16)
+        cm = torch.randn((B, L, N), generator=gen, device=dev).to(torch.bfloat16)
+        dy = torch.randn((B, H, L, P), generator=gen, device=dev)
+        ds = torch.randn((B, H, P, N), generator=gen, device=dev)
+        y, s_final, states = ssd_scan(x, log_a, bm, cm, return_states=True)
+        args = (x, log_a, bm, cm, dy, ds, states)
+        grads = ssd_scan_backward(*args)
+        again = ssd_scan_backward(*args)
+        torch.cuda.synchronize()
+        name = f"ssd-bwd B={B} H={H} P={P} N={N} L={L}"
+        bit_equal = all(torch.equal(g, h) for g, h in zip(grads, again))
+        if not bit_equal:
+            fail(f"{name}: two launches differ")
+        refs = ssd_scan_backward_plain(*args)
+        errs = [check_grad(g, r, f"{name} d{n}")
+                for n, g, r in zip(("x", "log_a", "B", "C"), grads, refs)]
+        del refs
+        nck = -(-L // KERNEL_CHUNK)
+        nbytes = (4 * (3 * B * H * L * P + B * H * nck * P * N + 2 * B * H * L + B * H * P * N)
+                  + 2 * 4 * B * L * N)
+        # the fewest FLOPs: twice the forward's, each of its products having
+        # two of the same size in the gradient (one for each operand)
+        flops = 2 * B * H * ssd_min_flops(L, P, N)
+        bnd, by = bound_ms(nbytes, flops, PEAK_TF32_FLOPS / 3)
+        f32_bnd, f32_by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
+        ms = time_ms(lambda: ssd_scan_backward(*args), flush=flush)
+        plain_ms = time_ms(lambda: ssd_scan_backward_plain(*args), flush=flush)
+        state_ctas, chunk_ctas = -(-P // 16) * H * B, nck * H * B
+        row = dict(B=B, L=L, max_abs_err=max(e for e, _ in errs),
+                   worst_row_ulps=max(u for _, u in errs), ms=ms, plain_ms=plain_ms,
+                   bound_ms=bnd, bound_by=by, library_ms=None, bit_equal=bit_equal,
+                   ctas=dict(state=state_ctas, chunk=chunk_ctas))
+        print(f"[ssd-bwd] B={B} H={H} P={P} N={N} L={L} bf16 B/C: dx/dlog_a/dB/dC max "
+              f"|kernel - plain| {[f'{e:.3g}' for e, _ in errs]} (f32 limit {F32_GRAD_TOL} x "
+              f"the largest value; bf16 as the flash backward's), worst bf16 row "
+              f"{row['worst_row_ulps']:.3g} ulps; two launches bit-equal {bit_equal}; kernel "
+              f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bnd:.4f} ms ({by}; 3xTF32 at "
+              f"{PEAK_TF32_FLOPS / 3e12:.0f} TFLOP/s), f32 CUDA-core bound {f32_bnd:.4f} ms "
+              f"({f32_by}); CTAs {state_ctas} (dS sweep) + {chunk_ctas} (chunks); no single "
+              f"PyTorch call computes this gradient", flush=True)
+        if (B, L) == SSD_BWD[0]:
+            y0, s0 = ssd_scan(x, log_a, bm, cm)
+            torch.cuda.synchronize()
+            if not (torch.equal(y0, y) and torch.equal(s0, s_final)):
+                fail(f"{name}: the forward's y or final state changes when it writes the "
+                     f"chunk states")
+            row["fwd_ms"] = time_ms(lambda: ssd_scan(x, log_a, bm, cm), flush=flush)
+            row["fwd_states_ms"] = time_ms(lambda: ssd_scan(x, log_a, bm, cm, return_states=True),
+                                           flush=flush)
+            print(f"[ssd-bwd] forward at B={B} L={L}: {row['fwd_ms']:.4f} ms without the chunk "
+                  f"states, {row['fwd_states_ms']:.4f} ms writing them "
+                  f"({4 * B * H * nck * P * N / 1e6:.1f} MB); y and the final state bit for bit "
+                  f"equal", flush=True)
+        rows[(B, L)] = row
+        del grads, again, states, args
+    return rows
+
+
+def hybrid_cut(layers: int):
+    """zamba2-2.7b at full width and ``layers`` of its 54 Mamba-2 blocks."""
+    return dataclasses.replace(get_config(HYBRID), n_layers=layers)
+
+
+def train_hybrid_phase(dev) -> dict:
+    """``[train-hybrid]``: TRAIN_HYBRID's steps of ``make_train_step`` on
+    zamba2-2.7b at full width, 12 of its 54 Mamba-2 blocks (two groups, so
+    both shared attention blocks and their LoRAs), every group
+    rematerialized, w_q/w_k tempered by 0.1 as ``[train]`` tempers them.
+    Gates: every loss finite, the last three below the first; exactly two
+    SSD forward launches (the forward and its recompute) and one SSD
+    backward a block and step; two flash forwards and one backward, on
+    tensor cores, a shared attention invocation and step. Then one step
+    under the profiler: kernels a step, the device's busy share, the SSD
+    backward's and forward's shares of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = hybrid_cut(TRAIN_HYBRID["layers"])
+    groups = cfg.n_layers // cfg.attn_every
+    model = Model(cfg, remat=TRAIN_HYBRID["remat"])
+    steps = TRAIN_HYBRID["steps"]
+    tcfg = TrainConfig(peak_lr=TRAIN_HYBRID["peak_lr"], warmup_steps=max(2, steps // 20),
+                       total_steps=steps)
+    step_fn, _ = make_train_step(model, tcfg)
+    params, opt = init_train_state(model, tcfg, 0, device=dev)
+    with torch.no_grad():
+        temper_attention(params)
+    n_params = sum(p.numel() for p in leaves(params))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_HYBRID["seq"],
+                                  global_batch=TRAIN_HYBRID["batch"]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    losses, walls = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, data.batch(i), i)
+        losses.append(float(metrics["loss"]))  # syncs
+        walls.append(time.perf_counter() - t0)
+    launches = dict(ssd_fwd=ssd_scan.launches, ssd_bwd=ssd_scan_backward.launches,
+                    flash_fwd=flash_attention.launches, flash_bwd=flash_attention_backward.launches,
+                    flash_bwd_tc=flash_attention_backward.launches_tc)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train-hybrid] {HYBRID} {cfg.n_layers} of {get_config(HYBRID).n_layers} Mamba-2 "
+          f"blocks and {groups} shared attention invocations at full width ({n_params / 1e9:.3f} G "
+          f"parameters, bf16; AdamW f32 moments), B={TRAIN_HYBRID['batch']} "
+          f"L={TRAIN_HYBRID['seq']}, remat {TRAIN_HYBRID['remat']}, peak lr "
+          f"{TRAIN_HYBRID['peak_lr']}: losses {[round(x, 4) for x in losses]}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"[train-hybrid] a loss is not finite: {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        fail(f"[train-hybrid] the last three losses {losses[-3:]} are not below the first "
+             f"{losses[0]}")
+    want = dict(ssd_fwd=2 * cfg.n_layers * steps, ssd_bwd=cfg.n_layers * steps,
+                flash_fwd=2 * groups * steps, flash_bwd=groups * steps,
+                flash_bwd_tc=groups * steps)
+    if launches != want:
+        fail(f"[train-hybrid] launches {launches} in {steps} steps, want {want}")
+    step_ms = 1e3 * float(np.median(walls[2:]))
+    tokens = TRAIN_HYBRID["batch"] * TRAIN_HYBRID["seq"]
+
+    # one more step under the profiler; a profile that comes back without
+    # device events (every profile after the first did in one run of the
+    # flash backward's rows, ``bwd_launch_ms``) is taken again on the next
+    # step once, and then the shares are not measured (None)
+    for step in range(steps, steps + 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, data.batch(step), step)
+            float(metrics["loss"])
+            prof_wall_ms = 1e3 * (time.perf_counter() - t0)
+        kernels = device_activities(prof)
+        if kernels:
+            break
+    busy_ms = sum(us for _, us in kernels.values()) / 1e3 or None
+
+    def device_ms(pattern: str) -> float | None:
+        if not kernels:
+            return None
+        return sum(us for name, (_, us) in kernels.items() if re.search(pattern, name)) / 1e3
+
+    def share(ms):
+        return None if ms is None else ms / busy_ms
+
+    ssd_bwd_ms, ssd_fwd_ms = device_ms(SSD_BWD_KERNEL_RE), device_ms(SSD_FWD_KERNEL_RE)
+    attn_ms = kernels and device_ms(BWD_KERNEL_RE) + device_ms("flash_tc_kernel") or None
+    out = dict(
+        launches=launches, losses=losses, step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+        peak_gb=peak_gb, n_params=n_params,
+        kernels_per_step=sum(c for c, _ in kernels.values()) or None,
+        busy_share=busy_ms and busy_ms / prof_wall_ms,
+        ssd_bwd_ms=ssd_bwd_ms, ssd_bwd_share=share(ssd_bwd_ms), ssd_fwd_ms=ssd_fwd_ms,
+        ssd_fwd_share=share(ssd_fwd_ms), attn_ms=attn_ms, profiled_wall_ms=prof_wall_ms,
+    )
+    print(f"[train-hybrid] step {step_ms:.1f} ms (median of steps 2-{steps - 1}; first "
+          f"{1e3 * walls[0]:.1f} ms), {out['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB; launches in {steps} steps {launches}", flush=True)
+    if not kernels:
+        print(f"[train-hybrid] profiled step: wall {prof_wall_ms:.1f} ms; device time not "
+              f"measured (two profiles came back without device events)", flush=True)
+    else:
+        print(f"[train-hybrid] profiled step: wall {prof_wall_ms:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms ({100 * out['busy_share']:.1f}% of the wall), "
+              f"{out['kernels_per_step']} kernels; SSD backward {ssd_bwd_ms:.1f} ms "
+              f"({100 * out['ssd_bwd_share']:.1f}% of the device time), SSD forward "
+              f"{ssd_fwd_ms:.1f} ms ({100 * out['ssd_fwd_share']:.1f}%), attention forward and "
+              f"backward {attn_ms:.2f} ms", flush=True)
+    top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
+    for name, (count, us) in top:
+        print(f"[train-hybrid]   {us / 1e3:9.3f} ms {count:5d}x  {name[:80]}")
+    del params, opt, metrics
+    return out
+
+
+class _PlainSSD:
+    """Stands in for the SSD scan's autograd Function in
+    ``[train-hybrid-grad]``: autograd through the plain scan."""
+
+    @staticmethod
+    def apply(x, log_a, b_mat, c_mat):
+        return ssd_scan_plain(x, log_a, b_mat, c_mat)
+
+
+def train_hybrid_grad_phase(dev) -> dict:
+    """``[train-hybrid-grad]``: the loss and every gradient leaf of zamba2
+    at full width (one group: 6 Mamba-2 blocks and one shared attention
+    invocation; w_q/w_k tempered) through the kernels, against the same
+    with autograd through ``ssd_scan_plain`` and ``flash_attention_plain``
+    (swapped in here only, with ``unittest.mock.patch``), relative L2 a
+    leaf. In f32 (the parameters widened; the kernels' f32 variants) each
+    leaf and the loss are held to HYBRID_F32_TOL. In bf16 the two paths sit
+    about 3 % apart (0.037 the worst leaf on an H100), and that is the bf16
+    path's own noise: each leaf's distance from the f32 plain gradients is
+    within 0.004 of the other path's. So in bf16 each leaf's distance from
+    the f32 plain gradient through the kernels may exceed the plain path's
+    by at most HYBRID_BF16_EXCESS, and the loss differs by at most
+    HYBRID_BF16_LOSS_TOL. A control, the kernels' path with the SSD
+    backward's dx and dlog_a rounded to bf16, shows what that gate sees of
+    a backward that keeps bf16 precision; it is printed, not gated."""
+    from unittest import mock
+
+    cfg = hybrid_cut(TRAIN_HYBRID["grad_layers"])
+    groups = cfg.n_layers // cfg.attn_every
+    model = Model(cfg)
+    params = model.init(1, device=dev)
+    temper_attention(params)
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_HYBRID["grad_seq"],
+                                 global_batch=TRAIN_HYBRID["grad_batch"])).batch(0)
+    batch = {k: torch.as_tensor(x, device=dev) for k, x in raw.items()}
+
+    def widened(tree: dict) -> dict:
+        return {k: widened(v) if isinstance(v, dict) else v.detach().float()
+                for k, v in tree.items()}
+
+    def value_and_grad(ps: dict, plain: bool):
+        p_leaves = leaves(ps)
+        for p in p_leaves:
+            p.requires_grad_(True)
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(mock.patch.object(flash_mod, "FlashAttention", _PlainFlash))
+                stack.enter_context(mock.patch.object(ssd_mod, "SSDScan", _PlainSSD))
+            loss, _ = model.loss(ps, batch)
+            return loss.detach().float().item(), torch.autograd.grad(loss, p_leaves)
+
+    def rel(got, want) -> list[float]:
+        return [((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+                for a, b in zip(got, want)]
+
+    reset_counters()
+    p32 = widened(params)
+    loss32_k, g32_k = value_and_grad(p32, plain=False)
+    loss32_p, g32_p = value_and_grad(p32, plain=True)
+    loss_k, g_k = value_and_grad(params, plain=False)
+    loss_p, g_p = value_and_grad(params, plain=True)
+    launched = (ssd_scan_backward.launches, flash_attention_backward.launches)
+    if launched != (2 * cfg.n_layers, 2 * groups):
+        fail(f"[train-hybrid-grad] (SSD, flash) backward launches {launched} in two kernel "
+             f"passes (want {(2 * cfg.n_layers, 2 * groups)}), none in the plain ones")
+    real = ssd_mod.SSDScan
+
+    class BwdInBf16(torch.autograd.Function):
+        """``SSDScan`` with its backward's dx and dlog_a rounded to bf16."""
+
+        @staticmethod
+        def forward(ctx, x, log_a, b_mat, c_mat):
+            return real.forward(ctx, x, log_a, b_mat, c_mat)
+
+        @staticmethod
+        def backward(ctx, dy, ds_final):
+            dx, dla, db, dc = real.backward(ctx, dy, ds_final)
+            return (dx.to(torch.bfloat16).to(dx.dtype), dla.to(torch.bfloat16).to(dla.dtype),
+                    db, dc)
+
+    with mock.patch.object(ssd_mod, "SSDScan", BwdInBf16):
+        _, g_ctrl = value_and_grad(params, plain=False)
+    rel32 = rel(g32_k, g32_p)
+    loss_rel32 = abs(loss32_k - loss32_p) / abs(loss32_p)
+    plain_dist = rel(g_p, g32_p)
+    excess = [a - b for a, b in zip(rel(g_k, g32_p), plain_dist)]
+    control = [a - b for a, b in zip(rel(g_ctrl, g32_p), plain_dist)]
+    direct = rel(g_k, g_p)
+    out = dict(worst_rel_f32=max(rel32), loss_rel_f32=loss_rel32, worst_excess_bf16=max(excess),
+               worst_excess_bf16_control=max(control),
+               worst_rel_bf16=max(direct), median_rel_bf16=float(np.median(direct)),
+               loss_rel_bf16=abs(loss_k - loss_p) / abs(loss_p), leaves=len(rel32))
+    print(f"[train-hybrid-grad] {HYBRID} {cfg.n_layers} Mamba-2 blocks and {groups} shared "
+          f"attention full width B={TRAIN_HYBRID['grad_batch']} L={TRAIN_HYBRID['grad_seq']}, "
+          f"{len(rel32)} gradient leaves. f32: loss {loss32_k:.6f} kernels vs {loss32_p:.6f} plain "
+          f"(rel {loss_rel32:.3g}), worst leaf rel L2 {max(rel32):.4g} (limit {HYBRID_F32_TOL}), "
+          f"median {float(np.median(rel32)):.4g}. bf16: loss rel {out['loss_rel_bf16']:.3g} "
+          f"(limit {HYBRID_BF16_LOSS_TOL}), kernels vs plain worst leaf {max(direct):.4g}, "
+          f"median {out['median_rel_bf16']:.4g}; distance from the f32 plain gradients through "
+          f"the kernels less the plain path's, worst leaf {max(excess):.4g} (limit "
+          f"{HYBRID_BF16_EXCESS}); control with the SSD backward's dx and dlog_a rounded to "
+          f"bf16: {max(control):.4g}", flush=True)
+    if not (max(rel32) <= HYBRID_F32_TOL and loss_rel32 <= HYBRID_F32_TOL
+            and max(excess) <= HYBRID_BF16_EXCESS
+            and out["loss_rel_bf16"] <= HYBRID_BF16_LOSS_TOL):
+        fail(f"[train-hybrid-grad] gradients differ: {out}")
+    return out
+
+
 def ptxas_kernels(report: str, pattern: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill-store bytes) of each entry function in a
     ``ptxas -v`` report whose mangled name matches ``pattern``; the kernel
@@ -2039,7 +2413,7 @@ def main() -> None:
     paged_g5 = paged_phase(dev, flush, heads=scout_heads, tag=SCOUT, pools=POOLS[:1])
     embed_rows = embed_kernel_rows(dev, flush)
     bwd_rows = flash_bwd_phase(dev, flush)
-    del flush
+    ssd_bwd_rows = ssd_bwd_phase(dev, flush)
     stamp("build and kernel rows")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2048,6 +2422,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_grad_phase(dev)
     train_restart_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained_hybrid = train_hybrid_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_hybrid_grad_phase(dev)
     stamp("training")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2086,16 +2466,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     embed_runs = new_model_phases(dev, stamp)
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     des = des_phase(dev, flush)
     stamp("des")
     grid = grid_phase(dev, flush, des)
-    del flush
     stamp("grid")
     telemetry = telemetry_phase(dev, des)
     stamp("telemetry")
     tables_phase(dev, des)
+    del flush
     stamp("tables")
 
     # The JSON line carries each kernel at its path's shapes: the largest
@@ -2168,6 +2549,24 @@ def main() -> None:
               f"B={TRAIN['batch']} H=32 K=4 D=128 L={TRAIN['seq']} causal"))
     kernels[-1].update({key: bwd_rows[(DENSE, TRAIN["seq"])][key]
                         for key in ("variant", "split", "dkdv_ctas", "dq_ctas", "launch_ms")})
+    hybrid_path = (f"train {HYBRID} ({TRAIN_HYBRID['layers']} of {get_config(HYBRID).n_layers} "
+                   f"Mamba-2 blocks), {TRAIN_HYBRID['steps']} steps")
+    kernels.append(
+        entry("flash_attention_bwd_d80", "flash_attention_bwd.cu",
+              "src/repro/models/layers.py:108 (no Pallas kernel: the reference differentiates "
+              "its jnp attention with jax.grad)", hybrid_path,
+              trained_hybrid["launches"]["flash_bwd"], bwd_rows[(HYBRID, TRAIN_HYBRID["seq"])],
+              f"B={TRAIN_HYBRID['batch']} H=32 K=32 D=80 L={TRAIN_HYBRID['seq']} causal"))
+    kernels[-1].update({key: bwd_rows[(HYBRID, TRAIN_HYBRID["seq"])][key]
+                        for key in ("variant", "split", "dkdv_ctas", "dq_ctas", "launch_ms")})
+    ssd_train = ssd_bwd_rows[SSD_BWD[0]]
+    kernels.append(
+        entry("ssd_scan_bwd", "ssd_scan_bwd.cu",
+              "src/repro/models/ssm.py:27 (no Pallas kernel: the reference differentiates its "
+              "jnp ssd_chunked with jax.grad)", hybrid_path,
+              trained_hybrid["launches"]["ssd_bwd"], ssd_train,
+              f"B={SSD_BWD[0][0]} H=80 P=64 N=64 L={SSD_BWD[0][1]}, bf16 B/C"))
+    kernels[-1].update({key: ssd_train[key] for key in ("ctas", "fwd_ms", "fwd_states_ms")})
     kernels.append(
         entry("sim_decode_telemetry", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
               f"DES routed Table-2 fleet, telemetry windows of {TELEMETRY['window']}",

@@ -123,7 +123,11 @@ struct Quad {
 
   __device__ __forceinline__ void load(const SlotIn& in, long long j, int live, bool vec) {
     n = live < 0 ? 0 : (live > 4 ? 4 : live);
-    if (vec && n == 4) {
+    // Tested on live itself, not as n == 4: nvcc 12.8 folded the clamp and
+    // that test into one VIMNMX.RELU whose predicate also held at live == 0,
+    // so the lane whose slots start at the row's end read 16 bytes past it,
+    // past the tensor in its last row (ROADMAP C, R3).
+    if (vec && live >= 4) {
       const unsigned o = *reinterpret_cast<const unsigned*>(in.occ + j);
       const unsigned r = *reinterpret_cast<const unsigned*>(in.tr + j);
       const int4 p = *reinterpret_cast<const int4*>(in.pre + j);

@@ -228,8 +228,9 @@ template <typename TX, typename TBC, int NP>
 __global__ void __launch_bounds__(kThreads, 1)
     ssd_scan_kernel(const TX* __restrict__ x, const float* __restrict__ log_a,
                     const TBC* __restrict__ bm, const TBC* __restrict__ cm,
-                    TX* __restrict__ y, float* __restrict__ s_out, int H, int L,
-                    int P, int N, int nbuf, int vec_x, int vec_bc) {
+                    TX* __restrict__ y, float* __restrict__ s_out,
+                    float* __restrict__ s_chunks, int H, int L, int P, int N, int nbuf,
+                    int vec_x, int vec_bc) {
   constexpr bool kExactX = sizeof(TX) == 2;
   constexpr bool kExactBC = sizeof(TBC) == 2;
   constexpr int kPT8 = kPT / 8;  // 8-column tiles of y a warp holds
@@ -352,6 +353,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     const TBC* Bt = b_tile(k);
     const TBC* Ct = c_tile(k);
     const float* Sc = state(k);  // f32, then (NP) the TF32 high and low parts
+    if (s_chunks) {  // the state entering chunk c, for the backward
+      float* dst = s_chunks + ((bh * nchunks + c) * P + p_off) * N;
+      for (int i = threadIdx.x; i < pw * (N / 4); i += kThreads) {
+        const int r = i / (N / 4), e = 4 * (i % (N / 4));
+        *reinterpret_cast<float4*>(dst + (size_t)r * N + e) =
+            *reinterpret_cast<const float4*>(Sc + r * lay.ss + e);
+      }
+    }
     const uint32_t* Sh = reinterpret_cast<const uint32_t*>(Sc) + kPT * lay.ss;
     const uint32_t* Sl = Sh + kPT * lay.ss;
     float* Sn = state((c + 1) % nbuf);
@@ -562,8 +571,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 template <typename TX, typename TBC, int NP>
 cudaError_t launch(const void* x, const float* log_a, const void* b, const void* c,
-                   void* y, float* s_out, int B, int H, int L, int P, int N,
-                   cudaStream_t stream) {
+                   void* y, float* s_out, float* s_chunks, int B, int H, int L, int P,
+                   int N, cudaStream_t stream) {
   static bool done[64] = {};
   const Layout<TX, TBC, NP> lay(N);
   const int nbuf = lay.total(2) <= kMaxSmem ? 2 : 1;
@@ -583,48 +592,55 @@ cudaError_t launch(const void* x, const float* log_a, const void* b, const void*
   const dim3 grid(H * ((P + kPT - 1) / kPT), B);
   ssd_scan_kernel<TX, TBC, NP><<<grid, kThreads, smem, stream>>>(
       static_cast<const TX*>(x), log_a, static_cast<const TBC*>(b),
-      static_cast<const TBC*>(c), static_cast<TX*>(y), s_out, H, L, P, N, nbuf, vec_x,
-      vec_bc);
+      static_cast<const TBC*>(c), static_cast<TX*>(y), s_out, s_chunks, H, L, P, N, nbuf,
+      vec_x, vec_bc);
   return cudaGetLastError();
 }
 
 template <typename TX, typename TBC>
 cudaError_t dispatch_n(const void* x, const float* log_a, const void* b, const void* c,
-                       void* y, float* s_out, int B, int H, int L, int P, int N,
-                       cudaStream_t s) {
-  if (N == 64) return launch<TX, TBC, 64>(x, log_a, b, c, y, s_out, B, H, L, P, N, s);
-  return launch<TX, TBC, 0>(x, log_a, b, c, y, s_out, B, H, L, P, N, s);
+                       void* y, float* s_out, float* s_chunks, int B, int H, int L, int P,
+                       int N, cudaStream_t s) {
+  if (N == 64)
+    return launch<TX, TBC, 64>(x, log_a, b, c, y, s_out, s_chunks, B, H, L, P, N, s);
+  return launch<TX, TBC, 0>(x, log_a, b, c, y, s_out, s_chunks, B, H, L, P, N, s);
 }
 
 template <typename TX>
 cudaError_t dispatch_bc(const void* x, const float* log_a, const void* b, const void* c,
-                        void* y, float* s_out, int B, int H, int L, int P, int N,
-                        int bc_dtype, cudaStream_t s) {
-  if (bc_dtype == 0) return dispatch_n<TX, float>(x, log_a, b, c, y, s_out, B, H, L, P, N, s);
+                        void* y, float* s_out, float* s_chunks, int B, int H, int L, int P,
+                        int N, int bc_dtype, cudaStream_t s) {
+  if (bc_dtype == 0)
+    return dispatch_n<TX, float>(x, log_a, b, c, y, s_out, s_chunks, B, H, L, P, N, s);
   if (bc_dtype == 1)
-    return dispatch_n<TX, __nv_bfloat16>(x, log_a, b, c, y, s_out, B, H, L, P, N, s);
+    return dispatch_n<TX, __nv_bfloat16>(x, log_a, b, c, y, s_out, s_chunks, B, H, L, P, N,
+                                         s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtypes: 0 = float32, 1 = bfloat16. x (B,H,L,P) and y like x; log_a
-// (B,H,L) f32; b, c (B,L,N); s_out (B,H,P,N) f32; all contiguous, P and N
-// multiples of 4.
+// (B,H,L) f32; b, c (B,L,N); s_out (B,H,P,N) f32; s_chunks, when not null,
+// (B,H,ceil(L/64),P,N) f32, the state entering each chunk (the backward's
+// input; serving passes null and gets y and s_out alone); all contiguous,
+// P and N multiples of 4.
 extern "C" int ssd_scan_fwd(const void* x, const void* log_a, const void* b,
-                            const void* c, void* y, void* s_out, int B, int H,
-                            int L, int P, int N, int x_dtype, int bc_dtype,
+                            const void* c, void* y, void* s_out, void* s_chunks, int B,
+                            int H, int L, int P, int N, int x_dtype, int bc_dtype,
                             void* stream) {
   if (B <= 0 || H <= 0 || L <= 0 || P <= 0 || N <= 0 || P % 4 || N % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* la = static_cast<const float*>(log_a);
   float* so = static_cast<float*>(s_out);
+  float* sc = static_cast<float*>(s_chunks);
+  if (sc && reinterpret_cast<uintptr_t>(sc) % 16) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (x_dtype == 0)
-    err = dispatch_bc<float>(x, la, b, c, y, so, B, H, L, P, N, bc_dtype, s);
+    err = dispatch_bc<float>(x, la, b, c, y, so, sc, B, H, L, P, N, bc_dtype, s);
   else if (x_dtype == 1)
-    err = dispatch_bc<__nv_bfloat16>(x, la, b, c, y, so, B, H, L, P, N, bc_dtype, s);
+    err = dispatch_bc<__nv_bfloat16>(x, la, b, c, y, so, sc, B, H, L, P, N, bc_dtype, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

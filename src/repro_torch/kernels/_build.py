@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "ssd_scan", "sim_decode")
+KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention", "ssd_scan",
+           "ssd_scan_bwd", "sim_decode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -60,8 +61,15 @@ SIGNATURES = {
     ),
     "ssd_scan": (
         "ssd_scan_fwd",
-        # x, log_a, b, c, y, s_out, B, H, L, P, N, x_dtype, bc_dtype, stream
-        [_P] * 6 + [_I] * 7 + [_P],
+        # x, log_a, b, c, y, s_out, s_chunks (null: none), B, H, L, P, N,
+        # x_dtype, bc_dtype, stream
+        [_P] * 7 + [_I] * 7 + [_P],
+    ),
+    "ssd_scan_bwd": (
+        "ssd_scan_bwd",
+        # x, log_a, b, c, dy, ds_final (null: zero), states, ds (scratch),
+        # dx, dlog_a, db_parts, dc_parts, B, H, L, P, N, bc_dtype, stream
+        [_P] * 12 + [_I] * 6 + [_P],
     ),
     "sim_decode": (
         "sim_decode_advance",

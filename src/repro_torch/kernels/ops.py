@@ -17,7 +17,10 @@ reference's slot cache describes: one layer's slot cache
 
 :func:`ssd_scan` folds dt into x in f32, as the reference model's
 ``ssd_chunked`` does (the reference's ``ops.ssd_scan`` folds it in x's
-dtype, bf16 in the served model), and hands the kernel f32 x.
+dtype, bf16 in the served model), and hands the kernel f32 x. Under
+autograd it goes through the scan's ``torch.autograd.Function``, and the
+fold and ``log_a = A·dt`` stay torch ops, so dt and A get their gradients
+from autograd.
 """
 
 from __future__ import annotations
@@ -94,7 +97,11 @@ def ssd_scan(
     b_mat: torch.Tensor,  # (B, L, N)
     c_mat: torch.Tensor,  # (B, L, N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, L, H, P) in x's dtype, final state (B, H, P, N) f32)."""
+    """Returns (y (B, L, H, P) in x's dtype, final state (B, H, P, N) f32).
+    With grad mode on and an input that requires grad the scan goes through
+    :class:`~repro_torch.kernels.ssd_scan.SSDScan` (``ssd_scan`` routes it
+    there), whose backward is the backward kernel (its plain version on
+    the CPU)."""
     dtf = dt.float()
     xh = (x.float() * dtf[..., None]).transpose(1, 2).contiguous()
     log_a = (a_neg.float()[None, None, :] * dtf).transpose(1, 2).contiguous()

@@ -16,15 +16,24 @@ it.
 
 :func:`ssd_scan` launches the kernel on CUDA tensors and runs
 :func:`ssd_scan_plain` on CPU tensors.
+
+The gradient: :class:`SSDScan` (a ``torch.autograd.Function``) runs the
+forward kernel with the state entering each chunk written out (f32
+``(B, H, nck, P, N)``, only when asked) and, in its backward,
+:func:`ssd_scan_backward`, which launches ``csrc/ssd_scan_bwd.cu`` on CUDA
+tensors and runs :func:`ssd_scan_backward_plain` on CPU tensors. The
+reference has no Pallas backward: it differentiates its jnp
+``repro.models.ssm.ssd_chunked`` with ``jax.grad``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.flash_attention import DTYPE_CODES
 
 #: Shared memory a CTA may use on sm_90 (bytes).
@@ -34,16 +43,15 @@ KERNEL_CHUNK = 64
 #: Columns of P a CTA takes (``kPT``): a (batch, head) runs on
 #: ``ceil(P / P_TILE)`` CTAs.
 P_TILE = 16
+#: The largest N the backward kernel takes (its state-gradient sweep keeps
+#: 16 rows of P by N a CTA in registers).
+BWD_MAX_N = 256
 
 
-def ssd_scan_plain(
-    x: torch.Tensor,  # (B, H, L, P) — dt already folded in
-    log_a: torch.Tensor,  # (B, H, L) — A·dt per step
-    b_mat: torch.Tensor,  # (B, L, N)
-    c_mat: torch.Tensor,  # (B, L, N)
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The chunked scan in f32, from a zero state (the kernel's plain
-    version, at the kernel's chunk length)."""
+def _chunked(x, log_a, b_mat, c_mat):
+    """The operands in f32, padded to whole chunks of the kernel's length
+    (x = 0, log_a = 0, B = C = 0 past L): x ``(B, H, nck, Q, P)``, log_a
+    ``(B, H, nck, Q)``, B and C ``(B, nck, Q, N)``."""
     bsz, h, length, p = x.shape
     n = b_mat.shape[-1]
     q = min(KERNEL_CHUNK, length)
@@ -53,13 +61,33 @@ def ssd_scan_plain(
     lac = F.pad(log_a.float(), (0, pad)).view(bsz, h, nck, q)
     bc = F.pad(b_mat.float(), (0, 0, 0, pad)).view(bsz, nck, q, n)
     cc = F.pad(c_mat.float(), (0, 0, 0, pad)).view(bsz, nck, q, n)
+    return xc, lac, bc, cc
+
+
+def ssd_scan_plain(
+    x: torch.Tensor,  # (B, H, L, P) — dt already folded in
+    log_a: torch.Tensor,  # (B, H, L) — A·dt per step
+    b_mat: torch.Tensor,  # (B, L, N)
+    c_mat: torch.Tensor,  # (B, L, N)
+    *,
+    return_states: bool = False,
+) -> tuple[torch.Tensor, ...]:
+    """The chunked scan in f32, from a zero state (the kernel's plain
+    version, at the kernel's chunk length). With ``return_states`` it also
+    returns the state entering each chunk, ``(B, H, nck, P, N)`` f32."""
+    bsz, h, length, p = x.shape
+    n = b_mat.shape[-1]
+    xc, lac, bc, cc = _chunked(x, log_a, b_mat, c_mat)
+    nck, q = lac.shape[2:]
 
     cum = lac.cumsum(-1)  # inclusive, (B, H, nck, Q)
     # intra-chunk: y_i = Σ_{j≤i} (C_i·B_j) exp(cum_i − cum_j) x_j
     cb = torch.einsum("bkin,bkjn->bkij", cc, bc)  # (B, nck, Q, Q)
     seg = cum[..., :, None] - cum[..., None, :]  # (B, H, nck, Q, Q)
     causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal, seg.exp(), torch.zeros((), device=x.device))
+    # exp(-inf) = 0 above the diagonal, where exp(seg) may overflow: the
+    # values are exp(seg)'s, and autograd through them gives no NaN
+    decay = torch.where(causal, seg, -torch.inf).exp()
     y_intra = torch.einsum("bkij,bhkij,bhkjp->bhkip", cb, decay, xc)
     # chunk aggregates: S += Σ_j exp(total − cum_j) x_j B_jᵀ
     total = cum[..., -1]  # (B, H, nck)
@@ -68,13 +96,90 @@ def ssd_scan_plain(
     read_w = cum.exp()
 
     s = torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
-    ys = []
+    ys, states = [], []
     for k in range(nck):
+        states.append(s)
         y_cross = torch.einsum("bin,bhpn->bhip", cc[:, k], s) * read_w[:, :, k, :, None]
         ys.append(y_intra[:, :, k] + y_cross)
         s = total[:, :, k].exp()[..., None, None] * s + state_in[:, :, k]
     y = torch.stack(ys, dim=2).reshape(bsz, h, nck * q, p)[:, :, :length]
+    if return_states:
+        return y.to(x.dtype), s, torch.stack(states, dim=2)
     return y.to(x.dtype), s
+
+
+def ssd_scan_backward_plain(
+    x: torch.Tensor,  # (B, H, L, P)
+    log_a: torch.Tensor,  # (B, H, L)
+    b_mat: torch.Tensor,  # (B, L, N)
+    c_mat: torch.Tensor,  # (B, L, N)
+    dy: torch.Tensor,  # (B, H, L, P)
+    ds_final: Optional[torch.Tensor],  # (B, H, P, N); None is zero
+    states: torch.Tensor,  # (B, H, nck, P, N), the forward's
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`ssd_scan_plain`'s (y, final state) with
+    respect to (x, log_a, B, C), written out in f32 at the kernel's chunk
+    length (the backward kernel's plain version; not autograd). Per (batch,
+    head) and chunk k, with ``cum`` the inclusive cumsum of log_a in the
+    chunk, ``S_{k-1}`` the state entering it (``states``, as
+    ``ssd_scan_plain(..., return_states=True)`` gives them) and ``dS_k`` the
+    gradient of the state leaving it, carried from ``ds_final`` back to the
+    first chunk:
+
+    * ``dS_{k-1} = e^{cum_Q} dS_k + Σ_i e^{cum_i} dy_i C_iᵀ``
+    * ``dx_j = Σ_{i≥j} (C_i·B_j) e^{cum_i−cum_j} dy_i + e^{cum_Q−cum_j} dS_k B_j``
+    * ``dC_i = Σ_{j≤i} e^{cum_i−cum_j} (dy_i·x_j) B_j + e^{cum_i} dy_i S_{k-1}``
+    * ``dB_j = Σ_{i≥j} e^{cum_i−cum_j} (dy_i·x_j) C_i + e^{cum_Q−cum_j} x_j dS_k``
+    * ``dlog_a_t = Σ_{i≥t} dcum_i`` over the chunk, where ``dcum`` gathers the
+      decays' gradients: the intra-chunk ``(dy_i·x_j) M_ij`` (+ on row i,
+      − on column j), the cross-chunk read ``e^{cum_i} dy_i·(S_{k-1} C_i)``,
+      and the state update's terms on ``cum_Q`` and on each ``cum_j``.
+
+    B and C are shared by every head (one group), so dB and dC sum over H.
+    Returns (dx in x's dtype, dlog_a f32, dB, dC in B's and C's dtypes)."""
+    bsz, h, length, p = x.shape
+    n = b_mat.shape[-1]
+    xc, lac, bc, cc = _chunked(x, log_a, b_mat, c_mat)
+    nck, q = lac.shape[2:]
+    dyc = F.pad(dy.float(), (0, 0, 0, nck * q - length)).view(bsz, h, nck, q, p)
+
+    cum = lac.cumsum(-1)
+    total = cum[..., -1]
+    e_cum = cum.exp()  # e^{cum_i}
+    w = (total[..., None] - cum).exp()  # e^{cum_Q − cum_j}
+    # the reverse sweep: ds[:, :, k] is the gradient of the state leaving chunk k
+    u = torch.einsum("bhkip,bkin->bhkpn", dyc * e_cum[..., None], cc)
+    s = (torch.zeros(bsz, h, p, n, dtype=torch.float32, device=x.device)
+         if ds_final is None else ds_final.float())
+    ds = []
+    for k in reversed(range(nck)):
+        ds.append(s)
+        s = total[:, :, k].exp()[..., None, None] * s + u[:, :, k]
+    ds = torch.stack(ds[::-1], dim=2)
+
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    seg = cum[..., :, None] - cum[..., None, :]
+    decay = torch.where(causal, seg, -torch.inf).exp()  # L_ij
+    m = torch.einsum("bkin,bkjn->bkij", cc, bc)[:, None] * decay  # M_ij = (C_i·B_j) L_ij
+    dm = torch.einsum("bhkip,bhkjp->bhkij", dyc, xc)  # dy_i·x_j
+    dseg = dm * m
+    dcb = dm * decay
+    dsb = torch.einsum("bkjn,bhkpn->bhkjp", bc, ds)  # dS_k B_j
+    dx = torch.einsum("bhkij,bhkip->bhkjp", m, dyc) + w[..., None] * dsb
+    dys = torch.einsum("bhkip,bhkpn->bhkin", dyc, states)  # dy_i S_{k-1}
+    xds = torch.einsum("bhkjp,bhkpn->bhkjn", xc, ds)  # x_j dS_k
+    dc = torch.einsum("bhkij,bkjn->bhkin", dcb, bc) + e_cum[..., None] * dys
+    db = torch.einsum("bhkij,bkin->bhkjn", dcb, cc) + w[..., None] * xds
+    dw = (bc[:, None] * xds).sum(-1)  # x_jᵀ dS_k B_j
+    dcum = dseg.sum(-1) - dseg.sum(-2) + e_cum * (cc[:, None] * dys).sum(-1) - w * dw
+    dcum[..., -1] += (w * dw).sum(-1) + total.exp() * (ds * states).sum((-2, -1))
+    dla = dcum.flip(-1).cumsum(-1).flip(-1)
+
+    dx = dx.reshape(bsz, h, nck * q, p)[:, :, :length]
+    dla = dla.reshape(bsz, h, nck * q)[:, :, :length]
+    db = db.sum(1).reshape(bsz, nck * q, n)[:, :length]
+    dc = dc.sum(1).reshape(bsz, nck * q, n)[:, :length]
+    return dx.to(x.dtype), dla, db.to(b_mat.dtype), dc.to(c_mat.dtype)
 
 
 def smem_bytes(n: int, x_size: int, bc_size: int, nbuf: int) -> int:
@@ -129,30 +234,123 @@ def ssd_scan(
     log_a: torch.Tensor,
     b_mat: torch.Tensor,
     c_mat: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    *,
+    return_states: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """The chunk scan: the kernel on CUDA, the plain version on the CPU.
-    The kernel has no backward yet: on CUDA inputs that require grad, with
-    grad mode on, it raises (the SSD scan's backward kernel) rather than
-    return an output with no gradient."""
+    With ``return_states`` the kernel also writes the state entering each
+    chunk, ``(B, H, nck, P, N)`` f32 (what the backward reads); without it,
+    it writes y and the final state only. With grad mode on and an input
+    that requires grad it goes through :class:`SSDScan`, whose backward is
+    the backward kernel (its plain version on the CPU)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, log_a, b_mat, c_mat)):
+        if return_states:
+            raise ValueError("return_states is for the forward without grad")
+        return SSDScan.apply(x, log_a, b_mat, c_mat)
     if x.device.type == "cpu":
-        return ssd_scan_plain(x, log_a, b_mat, c_mat)
-    refuse_grad("ssd_scan (the SSD scan's backward kernel)", x, log_a, b_mat, c_mat)
+        return ssd_scan_plain(x, log_a, b_mat, c_mat, return_states=return_states)
     _check(x, log_a, b_mat, c_mat)
     bsz, h, length, p = x.shape
     n = b_mat.shape[-1]
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     s_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    states = None
+    if return_states:
+        nck = -(-length // KERNEL_CHUNK)
+        states = torch.empty((bsz, h, nck, p, n), dtype=torch.float32, device=x.device)
     fn = _build.kernel_fn("ssd_scan")
     code = fn(
         x.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-        y.data_ptr(), s_final.data_ptr(), bsz, h, length, p, n,
-        DTYPE_CODES[x.dtype], DTYPE_CODES[b_mat.dtype],
+        y.data_ptr(), s_final.data_ptr(), None if states is None else states.data_ptr(),
+        bsz, h, length, p, n, DTYPE_CODES[x.dtype], DTYPE_CODES[b_mat.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("ssd_scan", code)
     ssd_scan.launches += 1
-    return y, s_final
+    return (y, s_final, states) if return_states else (y, s_final)
 
 
-#: Kernel launches since the last reset (plain-version calls not counted).
+def ssd_scan_backward(
+    x: torch.Tensor,
+    log_a: torch.Tensor,
+    b_mat: torch.Tensor,
+    c_mat: torch.Tensor,
+    dy: torch.Tensor,
+    ds_final: Optional[torch.Tensor],
+    states: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dlog_a, dB, dC) of the chunk scan: the backward kernel on CUDA,
+    :func:`ssd_scan_backward_plain` on the CPU. ``states`` are the forward's
+    (``ssd_scan(..., return_states=True)``); ``ds_final`` may be None (no
+    gradient reaches the final state). The kernel reads x and dy in f32
+    (bf16 ones are widened first) and writes dx in f32, cast to x's dtype;
+    dB and dC leave it as per-head f32 partials, summed over the heads here
+    in a fixed order (``torch.sum``), so two launches give the same bits."""
+    if x.device.type == "cpu":
+        return ssd_scan_backward_plain(x, log_a, b_mat, c_mat, dy, ds_final, states)
+    _check(x, log_a, b_mat, c_mat)
+    bsz, h, length, p = x.shape
+    n = b_mat.shape[-1]
+    nck = -(-length // KERNEL_CHUNK)
+    if n > BWD_MAX_N:
+        raise ValueError(f"the SSD backward takes N <= {BWD_MAX_N}, got {n}")
+    if dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)} on its device")
+    if states.shape != (bsz, h, nck, p, n) or states.dtype != torch.float32:
+        raise ValueError(f"states must be f32 {(bsz, h, nck, p, n)}, got {tuple(states.shape)}")
+    if ds_final is not None and (ds_final.shape != (bsz, h, p, n)
+                                 or ds_final.dtype != torch.float32):
+        raise ValueError(f"ds_final must be f32 {(bsz, h, p, n)}, got {tuple(ds_final.shape)}")
+    xf, dyf = x.float().contiguous(), dy.float().contiguous()
+    states = states.contiguous()
+    ds_final = None if ds_final is None else ds_final.contiguous()
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dla = torch.empty(log_a.shape, dtype=torch.float32, device=x.device)
+    db_parts = torch.empty((bsz, h, length, n), dtype=torch.float32, device=x.device)
+    dc_parts = torch.empty_like(db_parts)
+    ds = torch.empty_like(states)  # scratch: the gradient of the state leaving each chunk
+    fn = _build.kernel_fn("ssd_scan_bwd")
+    code = fn(
+        xf.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+        dyf.data_ptr(), None if ds_final is None else ds_final.data_ptr(),
+        states.data_ptr(), ds.data_ptr(), dx.data_ptr(), dla.data_ptr(),
+        db_parts.data_ptr(), dc_parts.data_ptr(), bsz, h, length, p, n,
+        DTYPE_CODES[b_mat.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _build.check("ssd_scan_bwd", code)
+    ssd_scan_backward.launches += 1
+    return (dx.to(x.dtype), dla, db_parts.sum(1).to(b_mat.dtype),
+            dc_parts.sum(1).to(c_mat.dtype))
+
+
+class SSDScan(torch.autograd.Function):
+    """The differentiable chunk scan: the forward kernel, writing the state
+    entering each chunk, and for the gradient the backward kernel; on CPU
+    tensors their plain versions. ``SSDScan.apply(x, log_a, b_mat, c_mat)``
+    returns (y, final state)."""
+
+    @staticmethod
+    def forward(ctx, x, log_a, b_mat, c_mat):
+        ctx.set_materialize_grads(False)
+        y, s_final, states = ssd_scan(x, log_a, b_mat, c_mat, return_states=True)
+        ctx.save_for_backward(x, log_a, b_mat, c_mat, states)
+        return y, s_final
+
+    @staticmethod
+    def backward(ctx, dy, ds_final):
+        x, log_a, b_mat, c_mat, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        return ssd_scan_backward(x, log_a, b_mat, c_mat, dy, ds_final, states)
+
+
+def reset_counters() -> None:
+    """Sets the launch counters to 0."""
+    ssd_scan.launches = 0
+    ssd_scan_backward.launches = 0
+
+
+#: Kernel launches since the last reset (plain-version calls not counted):
+#: the forward's, and the backward's (one a backward call).
 ssd_scan.launches = 0
+ssd_scan_backward.launches = 0

@@ -36,7 +36,13 @@ from repro_torch.kernels.sim_decode import (  # noqa: E402
     decode_advance_plain,
     random_state,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_scan,
+    ssd_scan_backward,
+    ssd_scan_backward_plain,
+    ssd_scan_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -347,6 +353,110 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(s, sp, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_forward_writes_chunk_states_without_changing_its_output(cuda, case):
+    """With the chunk states asked for (the backward's input), y and the
+    final state are bit for bit those of the forward without them, and the
+    states are the plain version's within the forward's tolerance."""
+    B, L, H, P, N, xdt, bcdt, atol, rtol = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    args = _ssd_inputs(gen, B, L, H, P, N, xdt, bcdt, cuda)
+    y, s = ssd_scan(*args)
+    y1, s1, states = ssd_scan(*args, return_states=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y) and torch.equal(s1, s)
+    assert states.shape == (B, H, -(-L // 64), P, N) and states.dtype == torch.float32
+    _, _, want = ssd_scan_plain(*args, return_states=True)
+    torch.testing.assert_close(states, want, atol=1e-4, rtol=1e-4)
+
+
+# The backward's cases: SSD_CASES' shapes (B, L, H, P, N, x dtype, B/C
+# dtype) and ragged lengths, N = 128 (two N tiles) and 256 (four), P = 96
+# (two P tiles), every one with a nonzero final-state gradient
+SSD_BWD_CASES = [c[:7] for c in SSD_CASES] + [
+    (2, 2048, 80, 64, 64, torch.float32, torch.bfloat16),  # zamba2's training shape
+    (1, 333, 8, 64, 64, torch.float32, torch.bfloat16),
+    (2, 50, 4, 32, 128, torch.float32, torch.bfloat16),
+    (1, 130, 3, 64, 128, torch.float32, torch.float32),
+    (1, 100, 2, 96, 32, torch.float32, torch.float32),
+]
+
+
+def _hold_ssd_grad(out, ref, what):
+    """f32 gradients (dx, dlog_a) within 2e-5 of the largest value (the two
+    sum the same f32 products in other orders); bf16 ones (dB and dC of
+    bf16 B/C, dx of bf16 x: one rounding of an f32 result) as
+    ``_hold_grad`` holds bf16 gradients."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype, what
+    _hold_grad(out, ref, out.dtype, what)
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_backward_kernel_matches_plain(cuda, case):
+    """``csrc/ssd_scan_bwd.cu`` against ``ssd_scan_backward_plain`` on the
+    kernel forward's chunk states, with and without a final-state gradient;
+    two launches bit for bit; one count a call."""
+    B, L, H, P, N, xdt, bcdt = case
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, log_a, bm, cm = _ssd_inputs(gen, B, L, H, P, N, xdt, bcdt, cuda)
+    dy = _randn(gen, (B, H, L, P), xdt, cuda)
+    ds = _randn(gen, (B, H, P, N), torch.float32, cuda)
+    _, _, states = ssd_scan(x, log_a, bm, cm, return_states=True)
+    for ds_final in (ds, None):
+        args = (x, log_a, bm, cm, dy, ds_final, states)
+        before = ssd_scan_backward.launches
+        grads = ssd_scan_backward(*args)
+        again = ssd_scan_backward(*args)
+        torch.cuda.synchronize()
+        assert ssd_scan_backward.launches == before + 2
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        refs = ssd_scan_backward_plain(*args)
+        for name, g, r in zip(("dx", "dlog_a", "dB", "dC"), grads, refs):
+            _hold_ssd_grad(g, r, name)
+
+
+def test_ssd_autograd_in_model_layout(cuda):
+    """``ops.ssd_scan`` under autograd on the card (the fold by autograd,
+    the scan through ``SSDScan``: one forward with the chunk states and one
+    backward launch), against autograd through the plain scan."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, L, H, P, N = 2, 200, 8, 64, 64
+    x = _randn(gen, (B, L, H, P), torch.float32, cuda).requires_grad_()
+    dt = (torch.rand((B, L, H), generator=gen, device=cuda) * 0.19 + 0.01).requires_grad_()
+    a = (-(torch.rand((H,), generator=gen, device=cuda) * 1.5 + 0.5)).requires_grad_()
+    bm = _randn(gen, (B, L, N), torch.bfloat16, cuda).requires_grad_()
+    cm = _randn(gen, (B, L, N), torch.bfloat16, cuda).requires_grad_()
+    dy = _randn(gen, (B, L, H, P), torch.float32, cuda)
+    ds = _randn(gen, (B, H, P, N), torch.float32, cuda)
+    leaves = (x, dt, a, bm, cm)
+    before = (ssd_scan.launches, ssd_scan_backward.launches)
+    y, s = ops.ssd_scan(*leaves)
+    grads = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (ssd_scan.launches, ssd_scan_backward.launches) == (before[0] + 1, before[1] + 1)
+    dtf = dt.float()
+    xh = (x * dtf[..., None]).transpose(1, 2)
+    log_a = (a[None, None, :] * dtf).transpose(1, 2)
+    yp, sp = ssd_scan_plain(xh, log_a, bm, cm)
+    refs = torch.autograd.grad((yp.transpose(1, 2) * dy).sum() + (sp * ds).sum(), leaves)
+    for name, g, r in zip(("dx", "ddt", "dA", "dB", "dC"), grads, refs):
+        _hold_ssd_grad(g, r, name)
+
+
+def test_ssd_backward_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, log_a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 16, 260, torch.float32, torch.float32, cuda)
+    _, _, states = ssd_scan(x, log_a, bm, cm, return_states=True)
+    with pytest.raises(ValueError, match="N <= 256"):
+        ssd_scan_backward(x, log_a, bm, cm, x, None, states)
+    x, log_a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 16, 8, torch.float32, torch.float32, cuda)
+    _, _, states = ssd_scan(x, log_a, bm, cm, return_states=True)
+    with pytest.raises(ValueError, match="states"):
+        ssd_scan_backward(x, log_a, bm, cm, x, None, states[:, :1])
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_backward(x, log_a, bm, cm, x[..., :8], None, states)
+
+
 def test_ssd_scan_refuses_what_it_does_not_take(cuda):
     gen = torch.Generator(device=cuda).manual_seed(6)
     x, log_a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 16, 8, torch.float32, torch.float32, cuda)
@@ -563,16 +673,10 @@ def test_flash_autograd_in_model_layout_bf16(cuda):
 
 
 def test_kernels_without_backward_refuse_grad(cuda):
-    """The SSD scan and paged decode have no backward kernel: under grad
-    they raise instead of returning outputs with no gradient; under
-    no_grad they run."""
+    """Paged decode has no backward kernel: under grad it raises instead of
+    returning an output with no gradient; under no_grad it runs. (The SSD
+    scan has one: ``test_ssd_autograd_in_model_layout``.)"""
     gen = torch.Generator(device=cuda).manual_seed(6)
-    x, log_a, bm, cm = _ssd_inputs(gen, 1, 64, 2, 16, 8, torch.float32, torch.float32, cuda)
-    x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="SSD scan's backward"):
-        ssd_scan(x, log_a, bm, cm)
-    with torch.no_grad():
-        ssd_scan(x, log_a, bm, cm)
     q = _randn(gen, (2, 8, 64), torch.bfloat16, cuda).requires_grad_()
     pages = _randn(gen, (4, 16, 2, 64), torch.bfloat16, cuda)
     bt = torch.arange(4, dtype=torch.int32, device=cuda).view(2, 2)
@@ -583,20 +687,71 @@ def test_kernels_without_backward_refuse_grad(cuda):
         paged_attention(q, pages, pages, bt, lengths)
 
 
-def test_hybrid_loss_raises_on_the_card(cuda):
-    """``Model(zamba2).loss`` on the card raises, naming the SSD scan's
-    missing backward kernel, until that kernel lands."""
+class _PlainSSD:
+    @staticmethod
+    def apply(x, log_a, b_mat, c_mat):
+        return ssd_scan_plain(x, log_a, b_mat, c_mat)
+
+
+class _PlainFlash:
+    @staticmethod
+    def apply(q, k, v, causal):
+        return flash_attention_plain(q, k, v, causal=causal)
+
+
+def test_hybrid_loss_gradients_on_the_card(cuda):
+    """Reduced zamba2's ``Model.loss`` on the card, its parameters widened
+    to f32 and w_q/w_k tempered by 0.1 as every comparison of the port
+    tempers them: the loss and every gradient leaf through the SSD and
+    flash kernels (one SSD backward a Mamba-2 block, one flash backward a
+    shared attention invocation) against autograd through their plain
+    versions, 1e-4 relative L2 a leaf (as ``chip_smoke.py`` holds the
+    full-width model in f32; the worst leaf read 7.6e-6 on an H100); in
+    bf16 every gradient is finite."""
+    from unittest import mock
+
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.models import Model
 
     cfg = get_config("zamba2-2.7b").reduced()
     model = Model(cfg)
     params = model.init(0, device=cuda)
-    for t in _tree_leaves(params):
-        t.requires_grad_()
-    tokens = torch.randint(0, cfg.vocab, (1, 64), device=cuda, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="SSD scan's backward"):
-        model.loss(params, {"tokens": tokens, "labels": tokens})
+    with torch.no_grad():  # the reference's init saturates attention (ROADMAP C)
+        for key in ("w_q", "w_k"):
+            params["shared"][key].mul_(0.1)
+    tokens = torch.randint(0, cfg.vocab, (2, 200), device=cuda, dtype=torch.int32,
+                           generator=torch.Generator(device=cuda).manual_seed(3))
+    batch = {"tokens": tokens, "labels": tokens}
+
+    def widened(tree):
+        return {k: widened(v) if isinstance(v, dict) else v.detach().float()
+                for k, v in tree.items()}
+
+    def value_and_grad(ps):
+        leaves = _tree_leaves(ps)
+        for t in leaves:
+            t.requires_grad_()
+        loss, _ = model.loss(ps, batch)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    _, grads16 = value_and_grad(params)
+    assert all(torch.isfinite(g).all() for g in grads16)
+    p32 = widened(params)
+    before = (ssd_scan_backward.launches, flash_attention_backward.launches)
+    loss, grads = value_and_grad(p32)
+    torch.cuda.synchronize()
+    groups = cfg.n_layers // cfg.attn_every
+    assert (ssd_scan_backward.launches - before[0],
+            flash_attention_backward.launches - before[1]) == (cfg.n_layers, groups)
+    with mock.patch.object(ssd_mod, "SSDScan", _PlainSSD), \
+            mock.patch.object(flash_mod, "FlashAttention", _PlainFlash):
+        loss_p, grads_p = value_and_grad(p32)
+    assert abs(loss.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
+    assert all(torch.isfinite(g).all() for g in grads)
+    rel = [((g - r).norm() / r.norm().clamp_min(1e-30)).item() for g, r in zip(grads, grads_p)]
+    print(f"[hybrid-card] worst leaf rel L2 {max(rel):.4g} of {len(rel)}")
+    assert max(rel) <= 1e-4
 
 
 def _tree_leaves(tree):
@@ -669,6 +824,28 @@ def test_sim_decode_kernel_bit_identical_to_plain(cuda, case):
         assert torch.equal(a, b), k
     if idle is not None:
         assert not want["comp"][idle].any() and not want["trunc_new"][idle].any()
+
+
+def test_sim_decode_reads_nothing_past_its_operands(cuda):
+    """Every operand of ``sim_decode`` ends where its device mapping ends
+    (``tests/guarded_memory.py``), at slot counts where the lane after a
+    row's last slot starts at the row's end, and the outputs equal the plain
+    version's. Run in a subprocess: a read past an operand faults, which
+    would end this session's CUDA context. Before the fix of ROADMAP C's R3
+    that lane read 16 bytes past the last row here."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    path = os.pathsep.join(p for p in (str(here.parent / "src"), os.environ.get("PYTHONPATH"))
+                           if p)
+    proc = subprocess.run([sys.executable, str(here / "guarded_memory.py")],
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=path))
+    assert proc.returncode == 0 and proc.stdout.split()[-1:] == ["ok"], (
+        proc.stdout[-2000:] + proc.stderr[-2000:])
 
 
 def test_sim_decode_refuses_what_it_does_not_take(cuda):
