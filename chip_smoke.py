@@ -8,8 +8,9 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    ``build/`` (one nvcc per source, all at once), prints the build time and
    each library's counts of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)
    instructions in its SASS (``cuobjdump``); the flash library and its
-   backward's must have HGMMA, the SSD scan's library one of the two; the
-   backward's wgmma kernels' registers and spills from ``ptxas -v``. Then
+   backward's must have HGMMA, the SSD scan's library and its backward's
+   one of the two; the flash backward's wgmma kernels' and the SSD
+   backward's kernels' registers and spills from ``ptxas -v``. Then
    reads ``time_ms``'s own
    floor (a one-element fill under the same flush, sleep and events);
 2. holds each kernel against its plain PyTorch version on the card at the
@@ -41,13 +42,15 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    against ``ssd_scan_backward_plain`` at zamba2's widths (B 2 x L 2048,
    the training shape; L 256; a ragged L 200), bf16 B/C, a nonzero
    final-state gradient, both on the kernel forward's chunk states; two
-   launches bit for bit; kernel, plain and bound ms and the CTAs of its two
-   launches; the forward's ms with and without the chunk states, y bit for
-   bit equal. Then ``[train-hybrid]``: 12 AdamW steps of zamba2-2.7b at
+   launches bit for bit; kernel, plain and bound ms, the chunk kernel's
+   variant and head group, the CTAs of the sweep and the chunk kernel,
+   each launch's device ms (profiler) and the bytes the design moves (by
+   arithmetic) beside the bound's; at the training shape the forward's ms
+   with and without the chunk states, y bit for bit equal. Then ``[train-hybrid]``: 12 AdamW steps of zamba2-2.7b at
    full width with 12 of its 54 Mamba-2 blocks (two groups, both shared
    attention blocks), B 2 x L 2048, remat full, w_q/w_k tempered; the
    losses finite and falling, exactly two SSD forwards and one SSD
-   backward a block and step, two flash forwards and one tensor-core
+   backward (its tensor-core chunk kernel) a block and step, two flash forwards and one tensor-core
    backward an attention invocation and step (counters set to 0 just
    before, read just after); step time, tokens/s, peak memory and one
    profiled step's kernels, busy share and the SSD launches' shares;
@@ -226,6 +229,8 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     KERNEL_CHUNK,
     P_TILE,
+    bwd_group,
+    bwd_variant,
     ssd_scan,
     ssd_scan_backward,
     ssd_scan_backward_plain,
@@ -338,7 +343,9 @@ PRIOR_MS = {"flash_attention": 0.1287, "flash_attention_d80": 0.0835,
             "flash_attention_bwd": 2.1907, "flash_attention_bwd yi-6b L 1024": 0.8553,
             "flash_attention_bwd qwen3 G 16 L 1024": 1.4859,
             "flash_attention_bwd zamba2 D 80": 0.0627,
-            "flash_attention_bwd musicgen D 64": 0.0587}
+            "flash_attention_bwd musicgen D 64": 0.0587,
+            "ssd_scan_bwd": 1.2050, "ssd_scan_bwd L 256": 0.1495,
+            "ssd_scan_bwd L 200": 0.1479}
 #: The paged rows: (name, slots, c_max); the long-pool row runs at yi-6b's
 #: widths only (bf16 and int8 pages).
 POOLS = (("short", 8, 512), ("long", 2, 2048))
@@ -449,9 +456,10 @@ SSD_BWD = ((2, 2048), (1, 256), (1, 200))
 # ``grad_seq``.
 TRAIN_HYBRID = dict(layers=12, batch=2, seq=2048, steps=12, peak_lr=1e-3, remat="full",
                     grad_layers=6, grad_batch=1, grad_seq=1024)
-#: The SSD backward's kernels by the names the profiler gives them, and the
-#: forward's.
-SSD_BWD_KERNEL_RE = r"::(state|chunk)_kernel<"
+#: The SSD backward's kernels by the names the profiler gives them (the dS
+#: sweep, the chunk kernel of either variant, the sum of the dB/dC
+#: partials), and the forward's.
+SSD_BWD_KERNEL_RE = r"::(dstate|chunk_tc|chunk_simt|sum_groups)_kernel<"
 SSD_FWD_KERNEL_RE = r"ssd_scan_kernel<"
 
 
@@ -2012,20 +2020,67 @@ def train_restart_phase(dev) -> dict:
     return dict(start=resumed["start"], max_loss_diff=diff)
 
 
+def ssd_bwd_bytes(B: int, H: int, L: int, P: int, N: int, group: int, bc_size: int) -> dict:
+    """The bytes each launch of the SSD backward's tensor-core design reads
+    and writes, by arithmetic from the design (each read and write the
+    kernels issue, L2 re-reads included: B and C, which every CTA of a
+    (batch, chunk) or a (batch, head) reads again, come mostly from L2, so
+    device memory sees fewer). MB by launch; not a measurement."""
+    nck, parts, f = -(-L // KERNEL_CHUNK), -(-H // group), 4
+    bhlp, state, grads = f * B * H * L * P, f * B * H * nck * P * N, 2 * f * B * parts * L * N
+    sweep = (bhlp + f * B * H * L + B * H * -(-P // 32) * -(-N // 64) * L * min(N, 64) * bc_size
+             + f * B * H * P * N + state)
+    chunk = (3 * bhlp + 2 * state + 2 * f * B * H * L + B * nck * parts * 2 * 64 * N * bc_size
+             + grads)
+    sums = grads + 2 * bc_size * B * L * N
+    return {k: v / 1e6 for k, v in dict(sweep=sweep, chunk=chunk, sum=sums).items()}
+
+
+def ssd_bwd_split_ms(args, calls: int = 5, tries: int = 3) -> dict | None:
+    """Device ms of each of the SSD backward's launches (the sweep, the
+    chunk kernel, the partials' sum; any other device activity of the call
+    under its own name), the mean over ``calls`` calls under the profiler.
+    A profile without the three launches is taken again, up to ``tries``
+    times; then the split is not measured (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ssd_scan_backward(*args)
+            torch.cuda.synchronize()
+        out: dict[str, float] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != torch.autograd.DeviceType.CUDA or e.duration_ns() <= 0:
+                continue
+            m = re.search(SSD_BWD_KERNEL_RE, e.name())
+            key = m.group(1) if m else e.name()[:60]
+            out[key] = out.get(key, 0.0) + e.duration_ns() / 1e6 / calls
+        if {"dstate", "sum_groups"} <= set(out) and ("chunk_tc" in out or "chunk_simt" in out):
+            return out
+    print(f"[ssd-bwd] per-launch split not measured: {tries} profiles show the backward's "
+          f"launches as {sorted(out)}", flush=True)
+    return None
+
+
 def ssd_bwd_phase(dev, flush) -> dict:
     """``[ssd-bwd]``: the SSD scan's backward kernel against
     ``ssd_scan_backward_plain`` at SSD_BWD's shapes (zamba2's widths, bf16
     B/C, f32 x and dy, a nonzero final-state gradient; both from the kernel
     forward's chunk states), two launches bit for bit, the kernel, plain and
-    bound ms and the CTAs of its two launches. At the training shape the
-    forward's ms with the chunk states written and without, y and the final
-    state bit for bit equal between the two. The bound counts the bytes the
-    function must move (x, dy and the chunk states read, dx written in f32;
-    log_a, B, C, the final state's gradient, dlog_a, dB, dC) and its fewest
-    FLOPs at the TF32 tensor-core rate over three passes, as ``[ssd_scan]``
-    does, beside the f32 CUDA-core bound."""
+    bound ms, the chunk kernel's variant and head group, the CTAs of the
+    sweep and the chunk kernel, each launch's device ms (profiler), the
+    bytes the design moves by arithmetic (``ssd_bwd_bytes``) against the
+    bound's. At the training shape the forward's ms with the chunk states
+    written and without, y and the final state bit
+    for bit equal between the two. The bound counts the bytes the function
+    must move (x, dy and the chunk states read, dx written in f32; log_a, B,
+    C, the final state's gradient, dlog_a, dB, dC) and its fewest FLOPs at
+    the TF32 tensor-core rate over three passes, as ``[ssd_scan]`` does,
+    beside the f32 CUDA-core bound."""
     cfg = get_config(HYBRID)
     H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
     for B, L in SSD_BWD:
         gen = torch.Generator(device=dev).manual_seed(13)
@@ -2060,19 +2115,30 @@ def ssd_bwd_phase(dev, flush) -> dict:
         f32_bnd, f32_by = bound_ms(nbytes, flops, PEAK_F32_FLOPS)
         ms = time_ms(lambda: ssd_scan_backward(*args), flush=flush)
         plain_ms = time_ms(lambda: ssd_scan_backward_plain(*args), flush=flush)
-        state_ctas, chunk_ctas = -(-P // 16) * H * B, nck * H * B
+        variant, group = bwd_variant(P, N), bwd_group(B, H, L, sms)
+        ctas = dict(sweep=-(-P // 32) * -(-N // 64) * H * B, chunk=nck * -(-H // group) * B)
+        moved = ssd_bwd_bytes(B, H, L, P, N, group, bm.element_size())
+        split = ssd_bwd_split_ms(args)
         row = dict(B=B, L=L, max_abs_err=max(e for e, _ in errs),
                    worst_row_ulps=max(u for _, u in errs), ms=ms, plain_ms=plain_ms,
                    bound_ms=bnd, bound_by=by, library_ms=None, bit_equal=bit_equal,
-                   ctas=dict(state=state_ctas, chunk=chunk_ctas))
+                   variant=variant, group=group, ctas=ctas, split_ms=split)
         print(f"[ssd-bwd] B={B} H={H} P={P} N={N} L={L} bf16 B/C: dx/dlog_a/dB/dC max "
               f"|kernel - plain| {[f'{e:.3g}' for e, _ in errs]} (f32 limit {F32_GRAD_TOL} x "
               f"the largest value; bf16 as the flash backward's), worst bf16 row "
               f"{row['worst_row_ulps']:.3g} ulps; two launches bit-equal {bit_equal}; kernel "
               f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bnd:.4f} ms ({by}; 3xTF32 at "
               f"{PEAK_TF32_FLOPS / 3e12:.0f} TFLOP/s), f32 CUDA-core bound {f32_bnd:.4f} ms "
-              f"({f32_by}); CTAs {state_ctas} (dS sweep) + {chunk_ctas} (chunks); no single "
-              f"PyTorch call computes this gradient", flush=True)
+              f"({f32_by}); chunk kernel {variant}, {group} heads a CTA; CTAs {ctas['sweep']} "
+              f"(dS sweep) + {ctas['chunk']} (chunks); no single PyTorch call computes this "
+              f"gradient", flush=True)
+        split_txt = ("not measured" if split is None else
+                     ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        print(f"[ssd-bwd] B={B} L={L} launches (device ms a call, profiler): {split_txt}; bytes "
+              f"the design moves by arithmetic, L2 re-reads included (not measured) "
+              f"{sum(moved.values()):.1f} MB "
+              f"({', '.join(f'{k} {v:.1f}' for k, v in moved.items())}) against the bound's "
+              f"{nbytes / 1e6:.1f} MB", flush=True)
         if (B, L) == SSD_BWD[0]:
             y0, s0 = ssd_scan(x, log_a, bm, cm)
             torch.cuda.synchronize()
@@ -2103,7 +2169,7 @@ def train_hybrid_phase(dev) -> dict:
     rematerialized, w_q/w_k tempered by 0.1 as ``[train]`` tempers them.
     Gates: every loss finite, the last three below the first; exactly two
     SSD forward launches (the forward and its recompute) and one SSD
-    backward a block and step; two flash forwards and one backward, on
+    backward, on its tensor-core chunk kernel, a block and step; two flash forwards and one backward, on
     tensor cores, a shared attention invocation and step. Then one step
     under the profiler: kernels a step, the device's busy share, the SSD
     backward's and forward's shares of the device time."""
@@ -2132,6 +2198,7 @@ def train_hybrid_phase(dev) -> dict:
         losses.append(float(metrics["loss"]))  # syncs
         walls.append(time.perf_counter() - t0)
     launches = dict(ssd_fwd=ssd_scan.launches, ssd_bwd=ssd_scan_backward.launches,
+                    ssd_bwd_tc=ssd_scan_backward.launches_tc,
                     flash_fwd=flash_attention.launches, flash_bwd=flash_attention_backward.launches,
                     flash_bwd_tc=flash_attention_backward.launches_tc)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2146,7 +2213,7 @@ def train_hybrid_phase(dev) -> dict:
         fail(f"[train-hybrid] the last three losses {losses[-3:]} are not below the first "
              f"{losses[0]}")
     want = dict(ssd_fwd=2 * cfg.n_layers * steps, ssd_bwd=cfg.n_layers * steps,
-                flash_fwd=2 * groups * steps, flash_bwd=groups * steps,
+                ssd_bwd_tc=cfg.n_layers * steps, flash_fwd=2 * groups * steps, flash_bwd=groups * steps,
                 flash_bwd_tc=groups * steps)
     if launches != want:
         fail(f"[train-hybrid] launches {launches} in {steps} steps, want {want}")
@@ -2318,7 +2385,8 @@ def train_hybrid_grad_phase(dev) -> dict:
 def ptxas_kernels(report: str, pattern: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill-store bytes) of each entry function in a
     ``ptxas -v`` report whose mangled name matches ``pattern``; the kernel
-    named ``<name><D>``."""
+    named ``<name><D>`` (its int template argument) or ``<name><bf16>`` /
+    ``<name><f32>`` (its element type)."""
     out = []
     for chunk in report.split("Compiling entry function '")[1:]:
         mangled = chunk.split("'", 1)[0]
@@ -2326,9 +2394,11 @@ def ptxas_kernels(report: str, pattern: str) -> list[tuple[str, int, int]]:
             continue
         name = re.search(r"\d+([a-z_]*" + pattern + r")", mangled)
         dim = re.search(r"ILi(\d+)E", mangled)
+        tag = (dim.group(1) if dim else "bf16" if "nv_bfloat16" in mangled
+               else "f32" if "IfE" in mangled else "?")
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
-        out.append((f"{name.group(1) if name else mangled}<{dim.group(1) if dim else '?'}>",
+        out.append((f"{name.group(1) if name else mangled}<{tag}>",
                     int(regs.group(1)) if regs else -1, int(spill.group(1)) if spill else 0))
     return out
 
@@ -2384,6 +2454,11 @@ def main() -> None:
         fail("the ssd_scan library has no HGMMA or HMMA (tensor-core) instruction")
     if not mma["flash_attention_bwd"]["HGMMA"]:
         fail("the flash_attention_bwd library has no HGMMA (wgmma) instruction")
+    if not (mma["ssd_scan_bwd"]["HGMMA"] or mma["ssd_scan_bwd"]["HMMA"]):
+        fail("the ssd_scan_bwd library has no HGMMA or HMMA (tensor-core) instruction")
+    for name, regs, spill in ptxas_kernels(reports["ssd_scan_bwd"], "_kernel"):
+        print(f"[build] ssd_scan_bwd {name}: {regs} registers a thread, {spill} bytes of spill "
+              f"stores")
     for name, regs, spill in ptxas_kernels(reports["flash_attention_bwd"], "wgmma_kernel"):
         print(f"[build] flash_attention_bwd {name}: {regs} registers a thread at launch "
               f"(setmaxnreg: producer 40, consumers 232), {spill} bytes of spill stores")
@@ -2566,7 +2641,8 @@ def main() -> None:
               "jnp ssd_chunked with jax.grad)", hybrid_path,
               trained_hybrid["launches"]["ssd_bwd"], ssd_train,
               f"B={SSD_BWD[0][0]} H=80 P=64 N=64 L={SSD_BWD[0][1]}, bf16 B/C"))
-    kernels[-1].update({key: ssd_train[key] for key in ("ctas", "fwd_ms", "fwd_states_ms")})
+    kernels[-1].update({key: ssd_train[key] for key in (
+        "variant", "group", "ctas", "split_ms", "fwd_ms", "fwd_states_ms")})
     kernels.append(
         entry("sim_decode_telemetry", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
               f"DES routed Table-2 fleet, telemetry windows of {TELEMETRY['window']}",

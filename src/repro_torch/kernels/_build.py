@@ -68,8 +68,9 @@ SIGNATURES = {
     "ssd_scan_bwd": (
         "ssd_scan_bwd",
         # x, log_a, b, c, dy, ds_final (null: zero), states, ds (scratch),
-        # dx, dlog_a, db_parts, dc_parts, B, H, L, P, N, bc_dtype, stream
-        [_P] * 12 + [_I] * 6 + [_P],
+        # dx, dlog_a, db_parts, dc_parts (scratch), db, dc, B, H, L, P, N,
+        # bc_dtype, variant (0 tensor cores, 1 CUDA cores), group, stream
+        [_P] * 14 + [_I] * 8 + [_P],
     ),
     "sim_decode": (
         "sim_decode_advance",

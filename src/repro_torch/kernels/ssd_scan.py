@@ -28,6 +28,7 @@ reference has no Pallas backward: it differentiates its jnp
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -43,9 +44,14 @@ KERNEL_CHUNK = 64
 #: Columns of P a CTA takes (``kPT``): a (batch, head) runs on
 #: ``ceil(P / P_TILE)`` CTAs.
 P_TILE = 16
-#: The largest N the backward kernel takes (its state-gradient sweep keeps
-#: 16 rows of P by N a CTA in registers).
+#: The largest N the backward kernel takes.
 BWD_MAX_N = 256
+#: P and N up to this take the backward's tensor-core chunk kernel
+#: (``chunk_tc_kernel``); above it, the CUDA-core one (``chunk_simt_kernel``).
+BWD_TC_MAX = 64
+#: CTAs of the tensor-core chunk kernel an SM holds (registers and shared
+#: memory allow two).
+BWD_TC_CTAS_PER_SM = 2
 
 
 def _chunked(x, log_a, b_mat, c_mat):
@@ -270,6 +276,33 @@ def ssd_scan(
     return (y, s_final, states) if return_states else (y, s_final)
 
 
+def bwd_variant(p: int, n: int) -> str:
+    """The backward's chunk kernel for head dim ``p`` and state ``n``:
+    ``"tc"`` (tensor cores, heads in groups) or ``"simt"`` (CUDA cores, a
+    CTA a head)."""
+    return "tc" if p <= BWD_TC_MAX and n <= BWD_TC_MAX else "simt"
+
+
+def bwd_group(bsz: int, h: int, length: int, sms: int) -> int:
+    """Heads a CTA of the tensor-core chunk kernel takes. A CTA runs its
+    group's heads one after another, so the launch takes about (waves of
+    CTAs) x (heads a CTA); the group that minimises that product is chosen,
+    the larger one on a tie (fewer dB/dC partials, each f32 (B, L, N), to
+    write and sum)."""
+    ctas = -(-length // KERNEL_CHUNK) * bsz
+    slots = BWD_TC_CTAS_PER_SM * sms
+
+    def cost(g: int) -> tuple[int, int]:
+        return -(-ctas * -(-h // g) // slots) * g, -g
+
+    return min(range(1, h + 1), key=cost)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def ssd_scan_backward(
     x: torch.Tensor,
     log_a: torch.Tensor,
@@ -283,9 +316,11 @@ def ssd_scan_backward(
     :func:`ssd_scan_backward_plain` on the CPU. ``states`` are the forward's
     (``ssd_scan(..., return_states=True)``); ``ds_final`` may be None (no
     gradient reaches the final state). The kernel reads x and dy in f32
-    (bf16 ones are widened first) and writes dx in f32, cast to x's dtype;
-    dB and dC leave it as per-head f32 partials, summed over the heads here
-    in a fixed order (``torch.sum``), so two launches give the same bits."""
+    (bf16 ones are widened first) and writes dx in f32, cast to x's dtype.
+    dB and dC are summed over each CTA's group of heads on chip
+    (``bwd_variant`` "tc"; :func:`bwd_group` heads a CTA) or leave per head
+    ("simt"), and the partials are summed in a fixed order by the library's
+    last launch: no atomics, so two launches give the same bits."""
     if x.device.type == "cpu":
         return ssd_scan_backward_plain(x, log_a, b_mat, c_mat, dy, ds_final, states)
     _check(x, log_a, b_mat, c_mat)
@@ -301,26 +336,37 @@ def ssd_scan_backward(
     if ds_final is not None and (ds_final.shape != (bsz, h, p, n)
                                  or ds_final.dtype != torch.float32):
         raise ValueError(f"ds_final must be f32 {(bsz, h, p, n)}, got {tuple(ds_final.shape)}")
+    kind = bwd_variant(p, n)
+    sms = _sm_count(x.device.index or 0)
+    group = 1 if kind == "simt" else min(bwd_group(bsz, h, length, sms), h)
+    parts = -(-h // group)
     xf, dyf = x.float().contiguous(), dy.float().contiguous()
     states = states.contiguous()
     ds_final = None if ds_final is None else ds_final.contiguous()
-    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    dla = torch.empty(log_a.shape, dtype=torch.float32, device=x.device)
-    db_parts = torch.empty((bsz, h, length, n), dtype=torch.float32, device=x.device)
+    dev = x.device
+    dx = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    dla = torch.empty(log_a.shape, dtype=torch.float32, device=dev)
+    db_parts = torch.empty((bsz, parts, length, n), dtype=torch.float32, device=dev)
     dc_parts = torch.empty_like(db_parts)
+    db = torch.empty(b_mat.shape, dtype=b_mat.dtype, device=dev)
+    dc = torch.empty_like(db)
     ds = torch.empty_like(states)  # scratch: the gradient of the state leaving each chunk
     fn = _build.kernel_fn("ssd_scan_bwd")
     code = fn(
         xf.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
         dyf.data_ptr(), None if ds_final is None else ds_final.data_ptr(),
         states.data_ptr(), ds.data_ptr(), dx.data_ptr(), dla.data_ptr(),
-        db_parts.data_ptr(), dc_parts.data_ptr(), bsz, h, length, p, n,
-        DTYPE_CODES[b_mat.dtype], torch.cuda.current_stream(x.device).cuda_stream,
+        db_parts.data_ptr(), dc_parts.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        bsz, h, length, p, n, DTYPE_CODES[b_mat.dtype], 0 if kind == "tc" else 1, group,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check("ssd_scan_bwd", code)
     ssd_scan_backward.launches += 1
-    return (dx.to(x.dtype), dla, db_parts.sum(1).to(b_mat.dtype),
-            dc_parts.sum(1).to(c_mat.dtype))
+    if kind == "tc":
+        ssd_scan_backward.launches_tc += 1
+    else:
+        ssd_scan_backward.launches_simt += 1
+    return dx.to(x.dtype), dla, db, dc
 
 
 class SSDScan(torch.autograd.Function):
@@ -348,9 +394,14 @@ def reset_counters() -> None:
     """Sets the launch counters to 0."""
     ssd_scan.launches = 0
     ssd_scan_backward.launches = 0
+    ssd_scan_backward.launches_tc = 0
+    ssd_scan_backward.launches_simt = 0
 
 
 #: Kernel launches since the last reset (plain-version calls not counted):
-#: the forward's, and the backward's (one a backward call).
+#: the forward's, and the backward's (one a backward call), also by the
+#: variant of its chunk kernel (``bwd_variant``).
 ssd_scan.launches = 0
 ssd_scan_backward.launches = 0
+ssd_scan_backward.launches_tc = 0
+ssd_scan_backward.launches_simt = 0

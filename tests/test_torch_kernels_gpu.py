@@ -38,6 +38,7 @@ from repro_torch.kernels.sim_decode import (  # noqa: E402
 )
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    bwd_variant,
     ssd_scan,
     ssd_scan_backward,
     ssd_scan_backward_plain,
@@ -379,6 +380,9 @@ SSD_BWD_CASES = [c[:7] for c in SSD_CASES] + [
     (2, 50, 4, 32, 128, torch.float32, torch.bfloat16),
     (1, 130, 3, 64, 128, torch.float32, torch.float32),
     (1, 100, 2, 96, 32, torch.float32, torch.float32),
+    # zamba2's widths at 13 heads, where the wrapper's group (4 heads at B
+    # 2, L 2048 on 132 SMs) does not divide H
+    (2, 2048, 13, 64, 64, torch.float32, torch.bfloat16),
 ]
 
 
@@ -413,6 +417,88 @@ def test_ssd_backward_kernel_matches_plain(cuda, case):
         refs = ssd_scan_backward_plain(*args)
         for name, g, r in zip(("dx", "dlog_a", "dB", "dC"), grads, refs):
             _hold_ssd_grad(g, r, name)
+
+
+# (B, L, H, group): head groups that do not divide H (13 heads in groups of
+# 5, and the wrapper's choice, None), one group holding every head (B 2, 3
+# heads, a group of 8), a head a group; zamba2's widths and bf16 B/C. A
+# group other than the wrapper's is forced through ``bwd_group``.
+SSD_BWD_GROUPS = [
+    (1, 512, 13, None),
+    (1, 512, 13, 5),
+    (2, 200, 3, 8),
+    (2, 130, 5, 1),
+]
+
+
+@pytest.mark.parametrize("case", SSD_BWD_GROUPS)
+def test_ssd_backward_head_groups(cuda, case, monkeypatch):
+    """The tensor-core variant sums dB and dC over each CTA's group of
+    heads: any grouping of H gives the plain version's gradients, two
+    launches bit for bit, one count on the variant's counter a call."""
+    B, L, H, group = case
+    if group is not None:
+        monkeypatch.setattr(ssd_mod, "bwd_group", lambda *_: group)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x, log_a, bm, cm = _ssd_inputs(gen, B, L, H, 64, 64, torch.float32, torch.bfloat16, cuda)
+    dy = _randn(gen, (B, H, L, 64), torch.float32, cuda)
+    ds = _randn(gen, (B, H, 64, 64), torch.float32, cuda)
+    _, _, states = ssd_scan(x, log_a, bm, cm, return_states=True)
+    args = (x, log_a, bm, cm, dy, ds, states)
+    assert bwd_variant(64, 64) == "tc"
+    before = (ssd_scan_backward.launches_tc, ssd_scan_backward.launches_simt)
+    grads = ssd_scan_backward(*args)
+    again = ssd_scan_backward(*args)
+    torch.cuda.synchronize()
+    assert (ssd_scan_backward.launches_tc, ssd_scan_backward.launches_simt) == (
+        before[0] + 2, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    refs = ssd_scan_backward_plain(*args)
+    for name, g, r in zip(("dx", "dlog_a", "dB", "dC"), grads, refs):
+        _hold_ssd_grad(g, r, name)
+
+
+def test_ssd_backward_variants_by_width(cuda):
+    """P and N up to 64 take the tensor-core chunk kernel, wider ones the
+    CUDA-core kernel, each on its own counter."""
+    assert [bwd_variant(p, n) for p, n in ((64, 64), (4, 4), (96, 32), (64, 128))] == [
+        "tc", "tc", "simt", "simt"]
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for P, N, kind in ((32, 16, "tc"), (96, 32, "simt")):
+        x, log_a, bm, cm = _ssd_inputs(gen, 1, 100, 2, P, N, torch.float32, torch.float32, cuda)
+        _, _, states = ssd_scan(x, log_a, bm, cm, return_states=True)
+        before = getattr(ssd_scan_backward, f"launches_{kind}")
+        ssd_scan_backward(x, log_a, bm, cm, x, None, states)
+        torch.cuda.synchronize()
+        assert getattr(ssd_scan_backward, f"launches_{kind}") == before + 1
+
+
+#: ``benchmarks/port_kernel_ab.py::ssd_forward_digests`` of the forward
+#: kernel built from the tree before its fragment helpers moved into
+#: ``csrc/mma_split.cuh`` (commit fac83b4), on an H100 with CUDA 12.8:
+#: (y, final state) a case of its DIGEST_CASES. Pinned to that toolchain
+#: and that forward: re-pin them (from ``port_kernel_ab.py``'s output on
+#: the new tree, once ``test_ssd_scan_kernel_matches_plain`` passes there)
+#: whenever nvcc or the forward kernel changes.
+FWD_GOLDEN = [
+    ["23f8be10d88353ce", "4074ddf87a4f53ac"],
+    ["e30ce754f3069dcf", "122d22b2ad07686d"],
+    ["82b417b237e922c7", "f46c4875eeb85838"],
+    ["4596d67857927f1d", "2c199ef3470305f8"],
+]
+
+
+def test_ssd_forward_bits_match_the_tree_before_the_shared_header(cuda):
+    """The forward's y and final state, bit for bit, are those the kernel
+    gave before its TF32 fragment helpers became a header shared with the
+    backward (inputs drawn with numpy, so the same bits on every machine).
+    A check of that refactor only: a new nvcc or a changed forward kernel
+    gives other bits, and then FWD_GOLDEN is re-pinned as its comment says;
+    the forward's values are held against the plain version by
+    ``test_ssd_scan_kernel_matches_plain``."""
+    from benchmarks.port_kernel_ab import ssd_forward_digests
+
+    assert ssd_forward_digests(ssd_scan, cuda) == FWD_GOLDEN
 
 
 def test_ssd_autograd_in_model_layout(cuda):
