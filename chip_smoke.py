@@ -74,8 +74,8 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 5. the same on full-width zamba2-2.7b (54 Mamba-2 blocks, 2 shared
    attention blocks applied 9 times; random bf16 weights from seed 0): the
    SSD scan, flash and paged kernels must each run;
-5b. the MoE family at full width, depth cut (``MOE_LAYERS``; the cut and
-   the weights' bytes printed): qwen3-235b-a22b (4 of 94 layers, 128
+5b. the MoE family at full width, depth cut (``CUT_LAYERS``, through
+   ``cut_model``; the cut and the weights' bytes printed): qwen3-235b-a22b (4 of 94 layers, 128
    experts top-8, GQA group 16) serves the same 16-request draw through the
    two pools at the default ``moe_group`` (``[serve-moe]``, flash and paged
    must run), is profiled as above with the host syncs inside one decode
@@ -86,6 +86,20 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    steps, each slot's logits held against a forward (``[moe-scout]``). The
    kernel phase (2) adds flash and paged at both head layouts (paged at
    qwen3's on both pools, scout's on the short pool it decodes in);
+5d. the five configs first run on the card, at full width with their depth
+   cut (``CUT_LAYERS``, printed): llama3-70b (4 of 80 layers), gemma-2b (4
+   of 18), granite-3-8b (4 of 40) and granite-34b (4 of 88) each serve the
+   16-request draw through the two pools (``[serve-llama3]``,
+   ``[serve-gemma]``, ``[serve-granite8]``, ``[serve-granite34]``: flash on
+   its tensor-core variant and paged must run, the CUDA-core flash must
+   not) and hold a decode step's logits against a forward
+   (``[logits-llama3]`` ...); llama3-70b's short pool is profiled as above
+   with 0 host syncs required (``[profile-llama3]``); llama4-maverick (2 of
+   48 layers: one dense, one MoE) decodes as scout does
+   (``[moe-maverick]``). The kernel phase (2) adds flash and paged at their
+   layouts: gemma's D 256 on one KV head, granite-34b's G 48 on one KV
+   head, llama3-70b's H 64 K 8 (flash also at L 1024, paged also on the
+   long pool) and granite-3-8b's H 32 K 8;
 5c. the rest of the model stack at full width and depth, random bf16
    weights from seed 0: xlstm-350m (21 mLSTM and 3 sLSTM blocks, an f32
    state of 88 MB a slot and no KV cache) serves the same 16-request draw
@@ -162,6 +176,9 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    count; flash and paged also at the MoE family's head layouts, ``_g16``
    on the qwen3 serve's path, ``_g5`` on the scout run's; ``_g7`` on the
    qwen2-vl run's, ``_d64`` and ``_cross`` on the musicgen run's;
+   ``_d256``, ``_g48``, ``_g8`` and ``_g4`` on the gemma-2b, granite-34b,
+   llama3-70b and granite-3-8b serves' (``_g5`` also carries maverick's
+   run, which has scout's layout, beside scout's);
    ``sim_decode_telemetry`` with the telemetry run's launches;
    ``flash_attention_bwd`` with the ``[train]`` run's launches,
    ``flash_attention_bwd_d80`` and ``ssd_scan_bwd`` with
@@ -214,6 +231,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_backward_plain,
     flash_attention_plain,
 )
+from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention,
     paged_attention_plain,
@@ -293,6 +311,14 @@ ROW_ULPS = 2
 # is 2**-8 relative, and 32 layers of them stay within a few percent of the
 # logit vector's norm. Held as the relative L2 error.
 LOGITS_REL_TOL = 5e-2
+# Where 0.1 leaves a config's attention scores more spread than yi-6b's
+# (``temper_factor``), its reading at 0.1 is near an arg-max: which keys win
+# turns on bf16 rounding, so the reading is the model's own noise as much as
+# the kernels'. There the reading through the kernels may exceed the same
+# steps' reading through the plain attention by LOGITS_EXCESS, half the
+# logits limit: a share or tile weighed wrongly decorrelates the logits
+# (0.27-1.18 rel L2 at the reference's init).
+LOGITS_EXCESS = 2.5e-2
 # The int8 cache's decode logits against the bf16 forward: on top of the
 # above, K and V carry int8 quantization noise (half a step of amax/127 per
 # value, ~0.4 % of the row's largest value) through every layer.
@@ -303,13 +329,28 @@ INT8_LOGITS_REL_TOL = 1e-1
 SSD_ATOL, SSD_RTOL = 1e-4, 1e-4
 
 DENSE, HYBRID = "yi-6b", "zamba2-2.7b"
-#: The MoE family's configs on the card and the layers each keeps of its
-#: published depth (full widths; ``dataclasses.replace(cfg, n_layers=...)``):
-#: qwen3-235b-a22b's 4 of 94 take ~22.4 GB in bf16 and serve through the
-#: two pools; llama4-scout's 2 of 48, ~12.9 GB, decode 8 slots.
 MOE, SCOUT = "qwen3-235b-a22b", "llama4-scout-17b-a16e"
-MOE_LAYERS = {MOE: 4, SCOUT: 2}
-#: Decode steps of the scout run (after the 8 slots' prefills).
+#: Four dense configs served at full width with their depth cut:
+#: llama3-70b (the paper's serving model; H 64 K 8 D 128, rope_theta
+#: 500,000), gemma-2b (H 8 K 1 D 256, GeGLU, tied 256,000-row head),
+#: granite-3-8b (H 32 K 8, vocab 49,155 padded to 49,408) and granite-34b
+#: (H 48 K 1, the plain GELU MLP). llama4-maverick (dense and top-1 MoE
+#: layers alternating) decodes as scout does.
+LLAMA3, GEMMA, GRANITE8, GRANITE34 = "llama3-70b", "gemma-2b", "granite-3-8b", "granite-34b"
+MAVERICK = "llama4-maverick-400b-a17b"
+#: Each one's phase tag and the suffix of its rows in the kernels JSON line.
+WIDTH_SERVES = {LLAMA3: ("serve-llama3", "g8"), GEMMA: ("serve-gemma", "d256"),
+                GRANITE8: ("serve-granite8", "g4"), GRANITE34: ("serve-granite34", "g48")}
+#: The layers each depth-cut config keeps of its published depth (full
+#: widths; ``cut_model``): qwen3-235b-a22b's 4 of 94 take ~22.4 GB in bf16;
+#: llama4-scout's 2 of 48 ~12.9 GB; maverick's 2 of 48 (one dense and one
+#: MoE layer) ~37 GB, past one card at 4; llama3-70b's 4 of 80 ~11 GB (all
+#: 80 would be ~141 GB, past one card). The other three are cut for the
+#: run's time: with the four dense configs at 8 layers the script read
+#: 1211.6 s of its 1200 s on one H100 host (their serves are host bound,
+#: each decode step's time about its launches'), so each keeps 4.
+CUT_LAYERS = {MOE: 4, SCOUT: 2, MAVERICK: 2, LLAMA3: 4, GEMMA: 4, GRANITE8: 4, GRANITE34: 4}
+#: Decode steps of the scout and maverick runs (after the 8 slots' prefills).
 SCOUT_STEPS = 16
 #: The xLSTM (O(1) decode state, no KV cache), served at full width and
 #: depth; the vlm and audio stacks (embeddings frontend), which the engine
@@ -327,13 +368,15 @@ COUNTERS = {"flash_attention": flash_attention, "paged_attention": paged_attenti
 #: Kernels per decode step (8 busy slots) that the profiled steps may not
 #: exceed: the counts the served paths had before the attention kernels
 #: were redesigned (the split combines inside the paged launch); the MoE
-#: path's and the xLSTM's are their first readings on the card
-#: (qwen3-235b-a22b, 4 layers; xlstm-350m, 24 blocks).
+#: path's, the xLSTM's and llama3-70b's are their first readings on the
+#: card (qwen3-235b-a22b, 4 layers; xlstm-350m, 24 blocks; llama3-70b, 4
+#: layers).
 MAX_KERNELS_PER_STEP = {"profile": 1665, "profile-int8": 2081, "profile-hybrid": 3910,
-                        "profile-moe": 426, "profile-xlstm": 1304}
+                        "profile-moe": 426, "profile-xlstm": 1304, "profile-llama3": 237}
 #: Profiles whose decode step must make no host sync (the MoE routing reads
-#: no per-expert count on the host; the xLSTM writes its state in place).
-SYNC_FREE_PROFILES = ("profile-moe", "profile-xlstm")
+#: no per-expert count on the host; the xLSTM writes its state in place;
+#: llama3-70b's dense step).
+SYNC_FREE_PROFILES = ("profile-moe", "profile-xlstm", "profile-llama3")
 #: The earlier design's device times (ms) at the JSON line's shapes, read
 #: on the same card model (NVIDIA H100 80GB HBM3, 700 W; PERF.md's table);
 #: printed on their own line, never in the kernels' JSON line.
@@ -771,6 +814,8 @@ def check_served(result: dict, arch: str, kernels: tuple[str, ...], tag: str) ->
     for name, n in launches.items():
         if n == 0 and name != "flash_attention_simt":
             fail(f"{tag}: {name} was never launched on the main path")
+    if launches.get("flash_attention_simt"):
+        fail(f"{tag}: bf16 prefill took the CUDA-core flash variant")
     return {"launches": launches, "server": result["server"], "decode_tokens": decode_tokens,
             "wall_s": result["wall_s"]}
 
@@ -892,7 +937,7 @@ def decode_syncs(eng) -> int:
 
 def decode_vs_forward(model, params) -> dict:
     """One request's last decode-step logits and a full forward recompute
-    of the same context."""
+    of the same context, over the config's vocabulary (not its padding)."""
     rng = np.random.default_rng(1)
     prompt = [int(t) for t in rng.integers(0, model.cfg.vocab, 150)]
     eng = ServingEngine(model, params, c_max=SERVE["short_cmax"], n_slots=1)
@@ -901,9 +946,10 @@ def decode_vs_forward(model, params) -> dict:
     while not comps:
         comps = eng.step()
     gen = comps[0].output_tokens
-    got = eng.last_logits[0].float()
+    vocab = model.cfg.vocab  # the padded tail holds f32 min in both
+    got = eng.last_logits[0, :vocab].float()
     ref, _ = model.forward(params, {"tokens": torch.tensor([prompt + gen[:-1]], device=got.device)})
-    ref = ref[0, -1].float()
+    ref = ref[0, -1, :vocab].float()
     if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
         fail("non-finite logits")
     return dict(
@@ -918,8 +964,8 @@ TEMPERED = ("w_q", "w_k", "cross_w_q", "cross_w_k")
 SLSTM_GATES = ("w_z", "w_i", "w_f", "w_o")
 
 
-def temper_attention(params: dict, keys: tuple = TEMPERED) -> None:
-    """Scales every ``w_q`` and ``w_k`` in the tree by 0.1, in place (the
+def temper_attention(params: dict, keys: tuple = TEMPERED, factor: float = 0.1) -> None:
+    """Scales every ``w_q`` and ``w_k`` in the tree by ``factor``, in place (the
     dense layers, the MoE family's dense and MoE blocks, the hybrid's shared
     attention blocks, musicgen's cross-attention, the xLSTM's mLSTM blocks),
     and the xLSTM's sLSTM gate projections: the reference's fan-in rule
@@ -930,31 +976,85 @@ def temper_attention(params: dict, keys: tuple = TEMPERED) -> None:
     forward at full width untempered, 7e-5 in f32; the port on the CPU)."""
     for key, val in params.items():
         if isinstance(val, dict):
-            temper_attention(val, keys + SLSTM_GATES if key == "slstm" else keys)
+            temper_attention(val, keys + SLSTM_GATES if key == "slstm" else keys, factor)
         elif key in keys:
-            val.mul_(0.1)
+            val.mul_(factor)
+
+
+def score_spread(cfg) -> float:
+    """The std of an attention score q·k/sqrt(D) at the reference's init for
+    unit-RMS input: its fan-in rule draws w_q and w_k, (d, heads, D), with
+    std 1/sqrt(heads), so q and k have std sqrt(d/H) and sqrt(d/K), and a
+    score d/sqrt(H K)."""
+    return cfg.d_model / math.sqrt(cfg.n_heads * cfg.n_kv_heads)
+
+
+def temper_factor(cfg) -> float:
+    """What the logits checks scale w_q and w_k by: 0.1, which leaves
+    yi-6b's scores a std of 3.62, or less where 0.1 leaves a config's
+    scores more spread than yi-6b's: the factor that brings them to
+    yi-6b's spread. Only the one-KV-head configs pass it (gemma-2b 7.24,
+    granite-34b 8.87 at 0.1); there softmax is near an arg-max at 0.1, and
+    ``logits_check`` holds that reading against the plain attention's on
+    the same steps (LOGITS_EXCESS) instead."""
+    return 0.1 * min(1.0, math.sqrt(score_spread(get_config(DENSE)) / score_spread(cfg)))
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The model's prefill and decode attention through the plain versions
+    (``flash_attention_plain``, ``paged_attention_plain``) on the card,
+    swapped in with ``unittest.mock.patch`` for the block only."""
+    from unittest import mock
+
+    with mock.patch.object(flash_mod, "flash_attention", flash_attention_plain), \
+            mock.patch.object(paged_mod, "paged_attention", paged_attention_plain):
+        yield
 
 
 def logits_check(srv, tag: str, model=None) -> float:
     """Decode-step logits against a full forward recompute, full width.
 
     With the reference's init (q/k projections scaled by the head count, so
-    attention scores have a std near 100 at yi-6b widths and softmax is an
-    arg-max) the two paths' different bf16 roundings pick different keys
-    and the logits decorrelate; that reading is printed, not held. The held
-    reading scales w_q and w_k by 0.1 (in place, after serving), which
-    leaves the attention soft, so the paths differ by bf16 rounding only.
-    ``model`` (the served one if None) runs both paths: the MoE family's at
-    ``moe_group=1``, where prefill and forward route each token alone as
-    decode does, so no capacity drop tells the paths apart.
+    attention scores have a std of d/sqrt(H K), 362 at yi-6b's widths, and
+    softmax is an arg-max) the two paths' different bf16 roundings pick
+    different keys and the logits decorrelate; that reading is printed, not
+    held. The held reading scales w_q and w_k by ``temper_factor`` (in
+    place, after serving), which leaves the attention soft, so the paths
+    differ by bf16 rounding only. Where that factor is below 0.1 the
+    reading at 0.1 is also taken through the plain attention
+    (:func:`plain_attention`) on the same steps, and the kernels' may
+    exceed it by LOGITS_EXCESS. ``model`` (the served one if
+    None) runs both paths: the MoE family's at ``moe_group=1``, where
+    prefill and forward route each token alone as decode does, so no
+    capacity drop tells the paths apart.
     """
     params = srv.short_engine.params
     model = model or srv.short_engine.model
     raw = decode_vs_forward(model, params)
     print(f"[{tag}] reference init (not held): {raw}")
-    temper_attention(params)
+    factor = temper_factor(model.cfg)
+    if factor < 0.1:
+        temper_attention(params)
+        r = decode_vs_forward(model, params)
+        launched = {name: c.launches for name, c in COUNTERS.items()}
+        with plain_attention():
+            p = decode_vs_forward(model, params)
+        if {name: c.launches for name, c in COUNTERS.items()} != launched:
+            fail(f"{tag}: the plain attention's pass launched a kernel")
+        excess = r["rel_l2"] - p["rel_l2"]
+        print(f"[{tag}] w_q, w_k x0.1 (scores of std {0.01 * score_spread(model.cfg):.3g}, "
+              f"past yi-6b's): decode step vs forward rel L2 {r['rel_l2']:.4g} through the "
+              f"kernels, {p['rel_l2']:.4g} through the plain attention, excess {excess:.4g} "
+              f"(limit {LOGITS_EXCESS}); argmax {r['argmax']} / {p['argmax']}")
+        if not excess <= LOGITS_EXCESS:
+            fail(f"{tag}: at w_q, w_k x0.1 the kernels' decode logits lie {excess} farther "
+                 f"from the forward than the plain attention's (limit {LOGITS_EXCESS})")
+        temper_attention(params, factor=factor / 0.1)
+    else:
+        temper_attention(params)
     r = decode_vs_forward(model, params)
-    print(f"[{tag}] w_q, w_k x0.1: decode step vs forward rel L2 {r['rel_l2']:.4g} "
+    print(f"[{tag}] w_q, w_k x{factor:.4g}: decode step vs forward rel L2 {r['rel_l2']:.4g} "
           f"(tol {LOGITS_REL_TOL}), max |diff| {r['max_abs_diff']:.4g} of max |logit| "
           f"{r['max_abs_logit']:.4g}; argmax {r['argmax']}")
     if not r["rel_l2"] <= LOGITS_REL_TOL:
@@ -977,46 +1077,86 @@ def logits_int8_check(srv) -> float:
     return r["rel_l2"]
 
 
-def moe_model(arch: str, tag: str, **kw) -> Model:
-    """``Model(cfg, **kw)`` of a MoE config at its published widths with its
-    depth cut to ``MOE_LAYERS``; prints the cut and the weights' bytes."""
+def cut_config(arch: str, layers: int, tag: str):
+    """``arch`` at its published widths with ``layers`` of its layers
+    (``dataclasses.replace``): every depth cut of this script is made, and
+    printed, here."""
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS[arch])
-    model = Model(cfg, **kw)
-    print(f"[{tag}] {arch}: n_layers cut {full.n_layers} -> {cfg.n_layers} (widths as "
-          f"published: d_model {cfg.d_model}, H {cfg.n_heads} K {cfg.n_kv_heads} D "
-          f"{cfg.head_dim}, {cfg.n_experts} experts of {cfg.moe_d_ff} top-{cfg.top_k}, "
-          f"{cfg.n_shared_experts} shared, padded vocab {cfg.padded_vocab}); "
-          f"{model.param_bytes() / 1e9:.2f} GB of bf16 weights, "
+    cfg = dataclasses.replace(full, n_layers=layers)
+    moe = (f", {cfg.n_experts} experts of {cfg.moe_d_ff} top-{cfg.top_k}, "
+           f"{cfg.n_shared_experts} shared, MoE every {cfg.moe_every}" if cfg.is_moe else "")
+    print(f"[{tag}] {arch}: n_layers cut {full.n_layers} -> {layers} (widths as published: "
+          f"d_model {cfg.d_model}, H {cfg.n_heads} K {cfg.n_kv_heads} D {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff} {cfg.activation}{moe}, vocab {cfg.vocab} padded to "
+          f"{cfg.padded_vocab}{', tied head' if cfg.tie_embeddings else ''}, rope_theta "
+          f"{cfg.rope_theta:g})", flush=True)
+    return cfg
+
+
+def cut_model(arch: str, layers: int, tag: str, **kw) -> Model:
+    """``Model(cfg, **kw)`` of ``arch`` cut to ``layers`` layers
+    (:func:`cut_config`); prints the weights' bytes and parameters."""
+    model = Model(cut_config(arch, layers, tag), **kw)
+    print(f"[{tag}] {model.param_bytes() / 1e9:.2f} GB of bf16 weights, "
           f"{model.active_param_count() / 1e9:.3f} B of {model.param_count() / 1e9:.3f} B "
           f"parameters active a token", flush=True)
     return model
 
 
-def serve_moe_phase(dev) -> dict:
-    """qwen3-235b-a22b at full width, its depth cut, through the two pools
-    on the 16-request draw, greedy, at the default ``moe_group``."""
-    model = moe_model(MOE, "serve-moe")
+def cut_serve_phase(dev, arch: str, tag: str,
+                    kernels: tuple[str, ...] = ("flash_attention", "paged_attention")) -> dict:
+    """``arch`` at full width with its depth cut (``CUT_LAYERS``) through the
+    two pools on the 16-request draw, greedy, at the default ``moe_group``
+    (each of ``kernels`` must run)."""
+    model = cut_model(arch, CUT_LAYERS[arch], tag)
     params = model.init(0, device=dev)
     srv = TwoPoolServer(model, params, short_cmax=SERVE["short_cmax"],
                         long_cmax=SERVE["long_cmax"], short_slots=SERVE["short_slots"],
                         long_slots=SERVE["long_slots"])
     reset_counters()
     result = run_workload(srv, requests=SERVE["requests"], seed=SERVE["seed"])
-    return check_served(result, MOE, ("flash_attention", "paged_attention"), "serve-moe")
+    return check_served(result, arch, kernels, tag)
 
 
-def scout_phase(dev) -> dict:
-    """llama4-scout at full width, its depth cut, w_q/w_k tempered as
-    ``logits_check`` does: 8 slots' prefills (prompts of 100 to 240 tokens)
-    and ``SCOUT_STEPS`` decode steps, the launch counters set to 0 just
-    before and read just after (flash and paged must run), then each slot's
-    last decode-step logits against a forward over its context, the model at
-    ``moe_group=1`` throughout."""
-    model = moe_model(SCOUT, "moe-scout", moe_group=1)
+def width_phases(dev, stamp) -> dict:
+    """The four dense configs of ``WIDTH_SERVES``, each served
+    (``cut_serve_phase``) and its decode logits held against a forward
+    (``[logits-*]``); llama3-70b's short pool profiled (``[profile-llama3]``,
+    0 host syncs in the model's step); then maverick's decode run
+    (``[moe-maverick]``). Each frees the card after it; prints the five
+    phases' seconds together."""
+    t0 = time.perf_counter()
+    runs = {}
+    for arch, (tag, _) in WIDTH_SERVES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = cut_serve_phase(dev, arch, tag)
+        if arch == LLAMA3:
+            out["profile"] = profile_decode(out["server"], "profile-llama3")
+        out["rel_l2"] = logits_check(out["server"], tag.replace("serve", "logits"))
+        del out["server"]
+        runs[arch] = out
+        stamp(tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs[MAVERICK] = moe_decode_phase(dev, MAVERICK, "moe-maverick")
+    stamp("moe-maverick")
+    print(f"[time] the five configs' phases took {time.perf_counter() - t0:.1f} s together",
+          flush=True)
+    return runs
+
+
+def moe_decode_phase(dev, arch: str, tag: str) -> dict:
+    """A llama4 config (scout, maverick) at full width, its depth cut, w_q/w_k
+    tempered as ``logits_check`` does: 8 slots' prefills (prompts of 100 to
+    240 tokens) and ``SCOUT_STEPS`` decode steps, the launch counters set to
+    0 just before and read just after (flash and paged must run), then each
+    slot's last decode-step logits against a forward over its context, the
+    model at ``moe_group=1`` throughout."""
+    model = cut_model(arch, CUT_LAYERS[arch], tag, moe_group=1)
     cfg = model.cfg
     params = model.init(0, device=dev)
-    temper_attention(params)
+    temper_attention(params, factor=temper_factor(cfg))
     slots = SERVE["short_slots"]
     eng = ServingEngine(model, params, c_max=SERVE["short_cmax"], n_slots=slots)
     rng = np.random.default_rng(3)
@@ -1032,24 +1172,24 @@ def scout_phase(dev) -> dict:
     wall = time.perf_counter() - t0
     launches = {name: COUNTERS[name].launches for name in ("flash_attention", "paged_attention")}
     launches["flash_attention_tc"] = flash_attention.launches_tc
-    print(f"[moe-scout] {slots} prefills and {eng.iterations} decode steps of {slots} slots in "
+    print(f"[{tag}] {slots} prefills and {eng.iterations} decode steps of {slots} slots in "
           f"{wall:.3f} s; kernel launches: {launches}", flush=True)
     if eng.iterations != SCOUT_STEPS or any(n == 0 for n in launches.values()):
-        fail(f"moe-scout: {eng.iterations} decode steps, launches {launches}")
+        fail(f"{tag}: {eng.iterations} decode steps, launches {launches}")
     worst = 0.0
     for slot, st in sorted(eng.slots.items()):
         ctx = st.request.tokens + st.generated[:-1]
         ref, _ = model.forward(params, {"tokens": torch.tensor([ctx], device=dev)})
-        got, ref = eng.last_logits[slot].float(), ref[0, -1].float()
+        got, ref = eng.last_logits[slot, :cfg.vocab].float(), ref[0, -1, :cfg.vocab].float()
         if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
-            fail(f"moe-scout: slot {slot}: non-finite logits")
+            fail(f"{tag}: slot {slot}: non-finite logits")
         rel = ((got - ref).norm() / ref.norm()).item()
         worst = max(worst, rel)
-        print(f"[moe-scout] slot {slot}: {len(ctx)} positions, decode step vs forward rel L2 "
+        print(f"[{tag}] slot {slot}: {len(ctx)} positions, decode step vs forward rel L2 "
               f"{rel:.4g}, argmax {int(got.argmax())} / {int(ref.argmax())}")
-    print(f"[moe-scout] worst rel L2 {worst:.4g} (tol {LOGITS_REL_TOL})", flush=True)
+    print(f"[{tag}] worst rel L2 {worst:.4g} (tol {LOGITS_REL_TOL})", flush=True)
     if not worst <= LOGITS_REL_TOL:
-        fail(f"moe-scout: decode logits differ from forward: rel L2 {worst} > {LOGITS_REL_TOL}")
+        fail(f"{tag}: decode logits differ from forward: rel L2 {worst} > {LOGITS_REL_TOL}")
     return dict(launches=launches, rel_l2=worst, wall_s=wall)
 
 
@@ -1673,6 +1813,44 @@ def embed_kernel_rows(dev, flush) -> dict:
     )
 
 
+def width_kernel_rows(dev, flush) -> dict:
+    """Flash (L 256; llama3-70b also L 1024) and paged (the short pool;
+    llama3-70b also the long pool) at the layouts ``WIDTH_SERVES`` give
+    them: gemma-2b's D 256 on one KV head (G 8), granite-34b's G 48 on one
+    KV head (six head-group CTAs of the paged kernel), llama3-70b's H 64 K 8
+    and granite-3-8b's H 32 K 8."""
+    rows = {}
+    for arch in WIDTH_SERVES:
+        cfg = get_config(arch)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        long = arch == LLAMA3
+        rows[arch] = dict(
+            flash=flash_phase(dev, flush, heads=heads, lengths=(256, 1024) if long else (256,),
+                              tag=arch),
+            paged=paged_phase(dev, flush, heads=heads, tag=arch,
+                              pools=POOLS if long else POOLS[:1]))
+    return rows
+
+
+def width_entries(entry, rows: dict, runs: dict) -> list:
+    """The JSON line's rows of the four dense configs' serving paths: flash
+    and paged at each one's layout."""
+    out = []
+    for arch, (_, suffix) in WIDTH_SERVES.items():
+        cfg = get_config(arch)
+        heads = f"H={cfg.n_heads} K={cfg.n_kv_heads} D={cfg.head_dim}"
+        path = f"serve {arch} ({CUT_LAYERS[arch]} of {cfg.n_layers} layers)"
+        launches = runs[arch]["launches"]
+        for name, source, rep, row, shape in (
+                ("flash_attention", "flash_attention.cu", "src/repro/kernels/flash_attention.py:96",
+                 rows[arch]["flash"][256], f"{heads} L=256"),
+                ("paged_attention", "paged_attention.cu", "src/repro/kernels/paged_attention.py:96",
+                 rows[arch]["paged"]["short"], f"8 slots x 512, {heads}, bf16 pages")):
+            out.append(entry(f"{name}_{suffix}", source, rep, path, launches[name], row, shape))
+            out[-1].update({key: row[key] for key in ("variant", "splits") if key in row})
+    return out
+
+
 def new_model_phases(dev, stamp) -> dict:
     """``[serve-xlstm]`` with its profile and logits check, ``[vlm]`` and
     ``[audio]``; each frees the card after it."""
@@ -1847,11 +2025,6 @@ def flash_bwd_phase(dev, flush) -> dict:
     return rows
 
 
-def dense_cut(layers: int):
-    """yi-6b at full width and ``layers`` of its 32 layers."""
-    return dataclasses.replace(get_config(DENSE), n_layers=layers)
-
-
 def train_phase(dev) -> dict:
     """``[train]``: TRAIN's steps of ``make_train_step`` on yi-6b at full
     width, TRAIN["layers"] layers, every layer rematerialized, w_q/w_k
@@ -1866,7 +2039,7 @@ def train_phase(dev) -> dict:
     busy share, the attention backward's share."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = dense_cut(TRAIN["layers"])
+    cfg = cut_config(DENSE, TRAIN["layers"], "train")
     model = Model(cfg, remat=TRAIN["remat"])
     steps = TRAIN["steps"]
     tcfg = TrainConfig(peak_lr=TRAIN["peak_lr"], warmup_steps=max(2, steps // 20),
@@ -1956,7 +2129,7 @@ def train_grad_phase(dev) -> dict:
     ``unittest.mock.patch``). Relative L2 a leaf, GRAD_REL_TOL."""
     from unittest import mock
 
-    cfg = dense_cut(TRAIN["grad_layers"])
+    cfg = cut_config(DENSE, TRAIN["grad_layers"], "train-grad")
     model = Model(cfg)
     params = model.init(1, device=dev)
     temper_attention(params)
@@ -2157,11 +2330,6 @@ def ssd_bwd_phase(dev, flush) -> dict:
     return rows
 
 
-def hybrid_cut(layers: int):
-    """zamba2-2.7b at full width and ``layers`` of its 54 Mamba-2 blocks."""
-    return dataclasses.replace(get_config(HYBRID), n_layers=layers)
-
-
 def train_hybrid_phase(dev) -> dict:
     """``[train-hybrid]``: TRAIN_HYBRID's steps of ``make_train_step`` on
     zamba2-2.7b at full width, 12 of its 54 Mamba-2 blocks (two groups, so
@@ -2175,7 +2343,7 @@ def train_hybrid_phase(dev) -> dict:
     backward's and forward's shares of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = hybrid_cut(TRAIN_HYBRID["layers"])
+    cfg = cut_config(HYBRID, TRAIN_HYBRID["layers"], "train-hybrid")
     groups = cfg.n_layers // cfg.attn_every
     model = Model(cfg, remat=TRAIN_HYBRID["remat"])
     steps = TRAIN_HYBRID["steps"]
@@ -2300,7 +2468,7 @@ def train_hybrid_grad_phase(dev) -> dict:
     a backward that keeps bf16 precision; it is printed, not gated."""
     from unittest import mock
 
-    cfg = hybrid_cut(TRAIN_HYBRID["grad_layers"])
+    cfg = cut_config(HYBRID, TRAIN_HYBRID["grad_layers"], "train-hybrid-grad")
     groups = cfg.n_layers // cfg.attn_every
     model = Model(cfg)
     params = model.init(1, device=dev)
@@ -2459,6 +2627,9 @@ def main() -> None:
     for name, regs, spill in ptxas_kernels(reports["ssd_scan_bwd"], "_kernel"):
         print(f"[build] ssd_scan_bwd {name}: {regs} registers a thread, {spill} bytes of spill "
               f"stores")
+    for name, regs, spill in ptxas_kernels(reports["flash_attention"], "flash_tc_kernel"):
+        print(f"[build] flash_attention {name}: {regs} registers a thread, {spill} bytes of spill "
+              f"stores")
     for name, regs, spill in ptxas_kernels(reports["flash_attention_bwd"], "wgmma_kernel"):
         print(f"[build] flash_attention_bwd {name}: {regs} registers a thread at launch "
               f"(setmaxnreg: producer 40, consumers 232), {spill} bytes of spill stores")
@@ -2487,6 +2658,7 @@ def main() -> None:
     paged_g16 = paged_phase(dev, flush, heads=moe_heads, tag=MOE)
     paged_g5 = paged_phase(dev, flush, heads=scout_heads, tag=SCOUT, pools=POOLS[:1])
     embed_rows = embed_kernel_rows(dev, flush)
+    width_rows = width_kernel_rows(dev, flush)
     bwd_rows = flash_bwd_phase(dev, flush)
     ssd_bwd_rows = ssd_bwd_phase(dev, flush)
     stamp("build and kernel rows")
@@ -2528,7 +2700,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    moe = serve_moe_phase(dev)
+    moe = cut_serve_phase(dev, MOE, "serve-moe")
     profile_decode(moe["server"], "profile-moe")
     cut = moe["server"].short_engine.model.cfg
     logits_check(moe["server"], "logits-moe", model=Model(cut, moe_group=1))
@@ -2536,8 +2708,9 @@ def main() -> None:
     stamp("qwen3 serve")
     gc.collect()
     torch.cuda.empty_cache()
-    scout = scout_phase(dev)
+    scout = moe_decode_phase(dev, SCOUT, "moe-scout")
     stamp("scout decode")
+    width_runs = width_phases(dev, stamp)
     gc.collect()
     torch.cuda.empty_cache()
     embed_runs = new_model_phases(dev, stamp)
@@ -2593,22 +2766,32 @@ def main() -> None:
               f"run_fleet_grid, Table-2 fleet, {max(GRID['ladders'])} threshold lanes",
               grid["launches"], grid["kernel"], f"(G, P, I, S) = {grid['kernel']['shape']}"),
     ]
-    moe_path = f"serve {MOE} ({MOE_LAYERS[MOE]} of {get_config(MOE).n_layers} layers)"
-    scout_path = (f"decode {SCOUT} ({MOE_LAYERS[SCOUT]} of {get_config(SCOUT).n_layers} "
-                  f"layers), 8 slots")
+    moe_path = f"serve {MOE} ({CUT_LAYERS[MOE]} of {get_config(MOE).n_layers} layers)"
+    # maverick decodes at scout's layout (H 40 K 8 D 128): its launches join
+    # scout's on the _g5 rows, path by path.
+    maverick = width_runs[MAVERICK]
+    g5_paths = {arch: f"decode {arch} ({CUT_LAYERS[arch]} of {get_config(arch).n_layers} "
+                      f"layers), 8 slots" for arch in (SCOUT, MAVERICK)}
+    g5_path = "; ".join(g5_paths.values())
     kernels += [
         entry("flash_attention_g16", flash_src, flash_rep, moe_path,
               moe["launches"]["flash_attention"], flash_g16[256], "H=64 K=4 D=128 L=256"),
         entry("paged_attention_g16", paged_src, paged_rep, moe_path,
               moe["launches"]["paged_attention"], paged_g16["short"],
               "8 slots x 512, H=64 K=4 D=128, bf16 pages"),
-        entry("flash_attention_g5", flash_src, flash_rep, scout_path,
-              scout["launches"]["flash_attention"], flash_g5[256], "H=40 K=8 D=128 L=256"),
-        entry("paged_attention_g5", paged_src, paged_rep, scout_path,
-              scout["launches"]["paged_attention"], paged_g5["short"],
-              "8 slots x 512, H=40 K=8 D=128, bf16 pages"),
+        entry("flash_attention_g5", flash_src, flash_rep, g5_path,
+              scout["launches"]["flash_attention"] + maverick["launches"]["flash_attention"],
+              flash_g5[256], "H=40 K=8 D=128 L=256"),
+        entry("paged_attention_g5", paged_src, paged_rep, g5_path,
+              scout["launches"]["paged_attention"] + maverick["launches"]["paged_attention"],
+              paged_g5["short"], "8 slots x 512, H=40 K=8 D=128, bf16 pages"),
     ]
+    for k in kernels[-2:]:
+        name = k["name"].removesuffix("_g5")
+        k["launches_by_path"] = {g5_paths[SCOUT]: scout["launches"][name],
+                                 g5_paths[MAVERICK]: maverick["launches"][name]}
     kernels += embed_entries(entry, embed_rows, embed_runs)
+    kernels += width_entries(entry, width_rows, width_runs)
     kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
     for k, row in zip(kernels[:6] + kernels[8:],
                       (flash_rows[256], flash80[256], paged_rows["short"], paged80["short"],

@@ -82,6 +82,11 @@ FLASH_CASES = [
     (1, 256, 28, 4, 128, torch.bfloat16, 2e-2),
     (2, 65, 28, 4, 128, torch.bfloat16, 2e-2),
     (1, 256, 24, 24, 64, torch.bfloat16, 2e-2),
+    # gemma-2b's D 256 on one KV head (G 8) at a ragged length, granite-34b's
+    # G 48 on one KV head, llama3-70b's H 64 K 8
+    (1, 200, 8, 1, 256, torch.bfloat16, 2e-2),
+    (1, 256, 48, 1, 128, torch.bfloat16, 2e-2),
+    (1, 256, 64, 8, 128, torch.bfloat16, 2e-2),
 ]
 
 # Full attention with a kv length other than q's (musicgen's cross-attention
@@ -132,6 +137,14 @@ PAGED_CASES = [
     # one of its 256 memory positions valid)
     (8, 24, 24, 64, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, None),
     (8, 24, 24, 64, 16, 16, torch.bfloat16, torch.bfloat16, 2e-2, [256] * 8),
+    # gemma-2b: bf16 pages at D 256 (512-byte rows, the two-stage ring) on
+    # one KV head, G 8, S 8, lengths that leave shares empty; granite-34b's
+    # G 48 on one KV head (six head-group CTAs, S 2), ragged lengths;
+    # llama3-70b's H 64 K 8
+    (8, 8, 1, 256, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, [1, 2, 9, 17, 64, 65, 300, 512]),
+    (8, 48, 1, 128, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2,
+     [1, 16, 64, 65, 128, 200, 333, 512]),
+    (8, 64, 8, 128, 16, 32, torch.bfloat16, torch.bfloat16, 2e-2, None),
 ]
 
 INT8_CASES = [
@@ -146,6 +159,7 @@ INT8_CASES = [
     (2, 8, 1, 64, 16, 9, torch.bfloat16, torch.float16, 2e-2, [144, 100]),  # boundary in a page
     (2, 32, 4, 128, 16, 64, torch.bfloat16, torch.float16, 2e-2, [1, 70]),  # empty shares
     (2, 32, 4, 128, 16, 4096, torch.bfloat16, torch.float16, 2e-2, [65_536, 1000]),  # long
+    (8, 8, 1, 256, 16, 32, torch.bfloat16, torch.float16, 2e-2, None),  # D 256, G 8
 ]
 
 SSD_CASES = [
@@ -185,9 +199,10 @@ def _randn(gen, shape, dtype, device):
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain(cuda, case, causal):
-    """Head-major operands against the plain version; the same data in the
-    model's (B, L, H, D) layout (strided views, no copy) gives the same bits;
-    bf16 at head dims 64, 80 and 128 counts on the tensor-core variant."""
+    """Head-major operands against the plain version; a second launch and
+    the same data in the model's (B, L, H, D) layout (strided views, no
+    copy) give the same bits; bf16 at head dims 64, 80 and 128 counts on the
+    tensor-core variant."""
     B, L, H, K, D, dtype, tol = case
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = _randn(gen, (B, H, L, D), dtype, cuda)
@@ -206,6 +221,7 @@ def test_flash_kernel_matches_plain(cuda, case, causal):
     assert getattr(flash_attention, counter) == before_kind + 1
     expect = flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), expect.float(), atol=tol, rtol=0)
+    assert torch.equal(flash_attention(q, k, v, causal=causal), out)
     qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     om = ops.flash_attention(qm, km, vm, causal=causal)
     assert om.is_contiguous() and om.shape == (B, L, H, D)
@@ -266,7 +282,8 @@ def _check_split(case, cuda):
     chunks = [] if lens is None else [-(-n // s) for n in lens]
     if lens == [144, 100]:  # every share boundary falls inside a page
         assert s == 2 and all(c % page for c in chunks)
-    if lens in ([1, 70], [1, 16, 64, 65, 128]):  # some CTAs hold an empty share
+    if lens in ([1, 70], [1, 16, 64, 65, 128], [1, 2, 9, 17, 64, 65, 300, 512]):
+        # some CTAs hold an empty share
         assert any(sh * c >= n for n, c in zip(lens, chunks) for sh in range(s))
     if pps * page >= 1 << 20:  # one CTA walks each sequence
         assert s == 1
