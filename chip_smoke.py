@@ -59,6 +59,19 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    (f32 within 2e-2 rel L2 a leaf; bf16 no farther from the f32 gradients
    than the plain path plus 2e-2). ``[flash-bwd]`` has a row at zamba2's
    training shape too;
+2d. the sharded path on a one-rank NCCL group, after the training phases
+   (``[train-restart]`` runs the launcher without a group): ``[mesh]``
+   starts the group (if NCCL does not start, the script fails; there is
+   no fallback), builds ``make_host_mesh(1)`` on cuda and runs
+   ``make_compressed_grad_sync`` over one yi-6b layer's gradient shapes in
+   bf16, equal bit for bit to the formula at one rank, its ms printed;
+   ``[train-mesh]`` trains yi-6b at full width with 4 of 32 layers (B 2 x L
+   2048) for 3 steps through ``launch.train.train`` on DTensors, restores
+   its step-2 checkpoint onto the mesh (``placements=``) and runs the next
+   step (its loss must equal the uninterrupted run's), destroys the group
+   and runs the same 3 steps on plain tensors: each loss within 1e-3
+   (bit-equality printed), the flash forward and backward counters equal
+   on the two paths, both step times printed;
 3. serves 16 requests through the port's ``TwoPoolServer`` on full-width
    yi-6b (random bf16 weights from a seed): short pool c_max 512 with 8
    slots, long pool c_max 2048 with 2 slots. The kernels' launch counters
@@ -169,6 +182,16 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    against 364 on the table's seed-42 trace; 72 + 224 against 355 on
    phase 6's seed-0 trace) and both of Table 3's fleets meeting
    ``PAPER_SLO`` are checked;
+7d. ``[roofline]``, after the five configs' phases: the least time on
+   ``H100_SXM`` (``analytic_cost``, ``Roofline``) and the model-FLOPs share
+   of ``[train]``'s step, ``[train-hybrid]``'s step and
+   ``[profile-llama3]``'s decode step beside their measured times, with
+   the card's name and power limit; a bound above a measured time fails
+   the script. ``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on
+   llama3-70b's decode_32k and train_4k on the 16 x 16 mesh, started as a
+   process of its own when the script starts and read here: it must exit
+   0, and each record must be ``ok`` with per-rank bytes, ``fits`` and the
+   three roofline terms;
 8. prints the earlier design's times at the JSON line's shapes on a line
    of their own (``[prior]``, copied from PERF.md, not measured here), the
    kernels' JSON line (each entry carries the timing floor; flash and paged
@@ -195,30 +218,39 @@ so does a machine without a GPU, and a directory without the repository.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
 import json
 import math
 import re
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+SRC = Path(__file__).resolve().parent / "src"
+sys.path.insert(0, str(SRC))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeCell, get_config  # noqa: E402
 from repro_torch.core.adaptive import AdaptiveController  # noqa: E402
-from repro_torch.core.cost_model import closed_form_savings  # noqa: E402
+from repro_torch.core.cost_model import H100_SXM, closed_form_savings  # noqa: E402
 from repro_torch.core.pools import (  # noqa: E402
     PoolConfig,
     homogeneous_pool,
     n_seq_for_cmax,
+)
+from repro_torch.distributed.collectives import (  # noqa: E402
+    make_compressed_grad_sync,
+    quantize_int8,
 )
 from repro_torch.distributed.fault import SimulatedFailure  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -254,6 +286,9 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_backward_plain,
     ssd_scan_plain,
 )
+from repro_torch.launch.analytic_cost import cell_cost  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.roofline import Roofline, model_flops_estimate  # noqa: E402
 from repro_torch.launch.serve import run_workload, serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -286,11 +321,12 @@ from repro_torch.training import (  # noqa: E402
 from repro_torch.training.tree import leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor-core
-# rates, the float32 rate outside the tensor cores, and HBM3.
-PEAK_BF16_FLOPS = 989e12
+# rates, the float32 rate outside the tensor cores, and HBM3; the bf16 rate
+# and HBM's are the port's ``H100_SXM`` spec, so the two stay one number.
+PEAK_BF16_FLOPS = H100_SXM.peak_flops_bf16
 PEAK_TF32_FLOPS = 495e12
 PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+PEAK_BYTES = H100_SXM.hbm_bw
 # bf16 outputs of the kernel and its plain version both round an f32
 # result; at |o| < 4 a bf16 ulp is 2**-6, so 2e-2 allows about one ulp plus
 # f32 summation-order noise.
@@ -504,6 +540,19 @@ TRAIN_HYBRID = dict(layers=12, batch=2, seq=2048, steps=12, peak_lr=1e-3, remat=
 #: partials), and the forward's.
 SSD_BWD_KERNEL_RE = r"::(dstate|chunk_tc|chunk_simt|sum_groups)_kernel<"
 SSD_FWD_KERNEL_RE = r"ssd_scan_kernel<"
+
+
+# ``[mesh]`` / ``[train-mesh]``: the sharded path on a one-rank NCCL group.
+# ``[train-mesh]``: yi-6b at full width, ``layers`` of its 32, B x L tokens,
+# ``steps`` steps through ``launch.train.train`` on DTensors and the same
+# steps on plain tensors (each loss within ``loss_rtol``), the mesh run's
+# checkpoint at ``ckpt_at`` restored onto the mesh (``placements=``); steps
+# 1 to ``ckpt_at`` - 1 are timed, as no checkpoint write overlaps them.
+MESH_TRAIN = dict(layers=4, batch=2, seq=2048, steps=4, ckpt_at=3, loss_rtol=1e-3)
+# ``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on llama3-70b's
+# decode_32k and train_4k on the 16 x 16 mesh, a process of its own started
+# with the script and read after ``[roofline]``.
+DRYRUN = dict(arch="llama3-70b", shapes=("decode_32k", "train_4k"), timeout=900)
 
 
 def fail(msg: str) -> None:
@@ -2193,6 +2242,198 @@ def train_restart_phase(dev) -> dict:
     return dict(start=resumed["start"], max_loss_diff=diff)
 
 
+def mesh_phase(dev) -> dict:
+    """``[mesh]``: a one-rank NCCL process group on the card (no fallback:
+    if it does not start, the script fails), ``make_host_mesh(1)`` on
+    cuda, and ``make_compressed_grad_sync`` over the data axis on a tree
+    shaped like one yi-6b layer's gradients in bf16, against the plain
+    formula, which is exact at one rank: the mean is the int8 payload times
+    its scale, the new error-feedback residual what that leaves of the
+    input plus the old one."""
+    t0 = time.perf_counter()
+    rendezvous = Path(tempfile.mkdtemp()) / "rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    mesh = make_host_mesh(model_parallel=1)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layer = Model(get_config(DENSE)).defs["blocks"]  # one entry a layer on axis 0
+    grads = {k: (1e-3 * torch.randn(d.shape[1:], generator=gen, device=dev)).to(torch.bfloat16)
+             for k, d in layer.items()}
+    errors = {k: 1e-6 * torch.randn(g.shape, generator=gen, device=dev) for k, g in grads.items()}
+    sync = make_compressed_grad_sync(mesh, ("data",))
+    means, new_errors = sync(grads, errors)
+    torch.cuda.synchronize()
+    for k, g in grads.items():
+        q, scale = quantize_int8(g.float() + errors[k])
+        want = q.float() * scale
+        if not (torch.equal(means[k], want)
+                and torch.equal(new_errors[k], g.float() + errors[k] - want)):
+            fail(f"[mesh] compressed_all_reduce of {k} differs from the one-rank formula")
+    calls = 5
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        sync(grads, errors)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t1) / calls
+    n = sum(g.numel() for g in grads.values())
+    print(f"[mesh] NCCL group of {dist.get_world_size()} rank, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+          f"on {mesh.device_type}; compressed_all_reduce over one {DENSE} layer's {len(grads)} "
+          f"gradient leaves ({n / 1e6:.1f} M bf16 values, {n / 1e6:.1f} MB of int8 payload): "
+          f"equal to the one-rank formula, mean and residual bit for bit; {ms:.3f} ms a tree "
+          f"(host clock, {calls} calls); phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(ms=ms, values=n)
+
+
+def train_mesh_phase(dev) -> dict:
+    """``[train-mesh]``: ``launch.train.train`` on DTensors over the
+    one-rank mesh (``model_parallel=1``) and then, the group destroyed, the
+    same steps from the same seed through ``train`` on plain tensors.
+    Gates: each loss within ``loss_rtol`` of the plain path's (and whether
+    they are bit-equal is printed); the flash forward and backward launch
+    counters equal on the two paths (``local_map`` handed the kernels their
+    shards); the mesh run's checkpoint at ``ckpt_at`` restored onto the
+    mesh through ``placements=`` (the launcher's resume) gives the next
+    step's loss equal to the uninterrupted run's. Prints both paths' step
+    times (DTensor's host overhead) over steps 1 to ``ckpt_at`` - 1, which
+    no checkpoint write overlaps on either path (the plain run saves only
+    after its last step)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    kw = MESH_TRAIN
+    steps = kw["steps"]
+    cfg = cut_config(DENSE, kw["layers"], "train-mesh")
+    run = dict(steps=steps, seq_len=kw["seq"], global_batch=kw["batch"], device=dev,
+               log_every=1000)
+
+    def launches() -> tuple[int, int]:
+        return flash_attention.launches, flash_attention_backward.launches
+
+    with tempfile.TemporaryDirectory() as d:
+        reset_counters()
+        mesh = train(cfg, ckpt_dir=d, ckpt_every=kw["ckpt_at"], model_parallel=1, **run)
+        mesh_launches = launches()
+        shutil.rmtree(Path(d) / f"step_{steps:08d}")
+        resumed = train(cfg, ckpt_dir=d, ckpt_every=kw["ckpt_at"], model_parallel=1, **run)
+    dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as d:
+        reset_counters()
+        plain = train(cfg, ckpt_dir=d, ckpt_every=steps + 1, **run)
+        plain_launches = launches()
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"], plain["losses"])]
+    bit_equal = mesh["losses"] == plain["losses"]
+    timed = slice(1, kw["ckpt_at"])
+    mesh_ms, plain_ms = (1e3 * float(np.median(r["step_s"][timed])) for r in (mesh, plain))
+    print(f"[train-mesh] losses on the mesh {mesh['losses']}, on plain tensors "
+          f"{plain['losses']}: largest relative difference {max(rel):.3g} (limit "
+          f"{kw['loss_rtol']}), bit-equal {bit_equal}; flash launches (forward, backward) mesh "
+          f"{mesh_launches}, plain {plain_launches}", flush=True)
+    print(f"[train-mesh] step {mesh_ms:.1f} ms on DTensors against {plain_ms:.1f} ms on plain "
+          f"tensors (median of steps 1-{kw['ckpt_at'] - 1}, no checkpoint write in flight, "
+          f"host clock; each step's seconds: mesh {[round(t, 4) for t in mesh['step_s']]}, "
+          f"plain {[round(t, 4) for t in plain['step_s']]}); checkpoint at step "
+          f"{kw['ckpt_at']} restored onto the mesh: resumed at {resumed['start']}, next loss "
+          f"{resumed['losses'][0]!r} against {mesh['losses'][kw['ckpt_at']]!r} uninterrupted; "
+          f"phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if max(rel) > kw["loss_rtol"]:
+        fail(f"[train-mesh] mesh losses {mesh['losses']} against plain {plain['losses']}")
+    if mesh_launches != plain_launches or not all(mesh_launches):
+        fail(f"[train-mesh] flash launches on the mesh {mesh_launches}, plain {plain_launches}")
+    if resumed["start"] != kw["ckpt_at"] or resumed["losses"][0] != mesh["losses"][kw["ckpt_at"]]:
+        fail(f"[train-mesh] the restored run (start {resumed['start']}) gave "
+             f"{resumed['losses']}, want {mesh['losses'][kw['ckpt_at']]} first")
+    return dict(mesh_ms=mesh_ms, plain_ms=plain_ms, max_rel=max(rel), bit_equal=bit_equal)
+
+
+def roofline_phase(trained: dict, trained_hybrid: dict, llama3: dict, smi: str) -> dict:
+    """``[roofline]``: the least time of three measured steps on one H100
+    from ``analytic_cost`` and ``Roofline`` on ``H100_SXM`` (one rank, no
+    collectives; causal attention counted as the triangle the flash kernel
+    computes, every layer rematerialized as the steps are), beside the
+    measured time, with the model-FLOPs share (6 N D for training, 2 N D a
+    decoded token, over the measured time at the bf16 peak). A bound above
+    the measured time is a counting fault and fails the script."""
+    out = {}
+    cells = (
+        ("train", DENSE, TRAIN["layers"], ShapeCell("train", "train", TRAIN["seq"], TRAIN["batch"]),
+         trained["step_ms"]),
+        ("train-hybrid", HYBRID, TRAIN_HYBRID["layers"],
+         ShapeCell("train-hybrid", "train", TRAIN_HYBRID["seq"], TRAIN_HYBRID["batch"]),
+         trained_hybrid["step_ms"]),
+        ("profile-llama3", LLAMA3, CUT_LAYERS[LLAMA3],
+         ShapeCell("profile-llama3", "decode", SERVE["short_cmax"], SERVE["short_slots"]),
+         llama3["profile"]["step_ms"]),
+    )
+    for tag, arch, layers, cell, measured_ms in cells:
+        model = Model(cut_config(arch, layers, "roofline"))
+        cost = cell_cost(model.cfg, cell, model.param_count(), causal_mode="triangle",
+                         remat="full", optimizer="adamw")
+        roof = Roofline(cost.flops_total, cost.hbm_bytes, 0.0, 1, hw=H100_SXM)
+        train_cell = cell.kind == "train"
+        tokens = cell.global_batch * (cell.seq_len if train_cell else 1)
+        model_flops = model_flops_estimate(model.active_param_count(), tokens, train=train_cell)
+        share = model_flops / (measured_ms / 1e3 * H100_SXM.peak_flops_bf16)
+        bound_ms = 1e3 * roof.bound_s
+        out[tag] = dict(bound_ms=bound_ms, dominant=roof.dominant, measured_ms=measured_ms,
+                        model_flops_share=share, compute_ms=1e3 * roof.compute_s,
+                        memory_ms=1e3 * roof.memory_s)
+        print(f"[roofline] {tag}: bound {bound_ms:.3f} ms ({roof.dominant}: compute "
+              f"{1e3 * roof.compute_s:.3f} ms for {cost.flops_total / 1e12:.2f} TFLOP, memory "
+              f"{1e3 * roof.memory_s:.3f} ms for {cost.hbm_bytes / 1e9:.2f} GB) against "
+              f"{measured_ms:.3f} ms measured ({bound_ms / measured_ms:.3f} of it); model-FLOPs "
+              f"share {share:.4f} ({model_flops / 1e12:.2f} TFLOP of 6/2 N D); {smi}", flush=True)
+        if bound_ms > measured_ms:
+            fail(f"[roofline] {tag}: bound {bound_ms:.3f} ms above the measured {measured_ms:.3f} ms")
+    return out
+
+
+def start_dryrun() -> tuple[subprocess.Popen, float, Path]:
+    """``[dryrun]``'s process, started at once so that it runs beside the
+    card's phases (a process has one process group; the dry run's is fake).
+    It is killed at exit if the script ends before reading it."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    out = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN["arch"],
+           "--shape", *DRYRUN["shapes"], "--out", str(out)]
+    # files, not pipes: nothing reads the process until [dryrun], and a full
+    # pipe would stall it
+    with open(out / "stdout", "w") as stdout, open(out / "stderr", "w") as stderr:
+        proc = subprocess.Popen(cmd, env=env, stdout=stdout, stderr=stderr)
+    atexit.register(proc.kill)
+    return proc, time.perf_counter(), out
+
+
+def dryrun_phase(proc: subprocess.Popen, started: float, out: Path) -> list:
+    """``[dryrun]``: waits for the dry run's process (a failing one fails
+    the script) and gates each record: status ok, per-rank bytes, ``fits``
+    and the three roofline terms."""
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=DRYRUN["timeout"])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"[dryrun] did not end within {DRYRUN['timeout']} s")
+    stdout, stderr = ((out / name).read_text() for name in ("stdout", "stderr"))
+    if proc.returncode != 0:
+        fail(f"[dryrun] exited {proc.returncode}: {stderr[-2000:]}")
+    records = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    for line in stdout.splitlines():
+        if line.startswith("["):
+            print(f"[dryrun] {line}")
+    if len(records) != len(DRYRUN["shapes"]):
+        fail(f"[dryrun] {len(records)} records, want {len(DRYRUN['shapes'])}")
+    for rec in records:
+        r = rec["roofline"]
+        if rec["status"] != "ok" or not rec["bytes_per_rank"]["total"] or "fits" not in rec or not all(
+                isinstance(r[k], float) and r[k] > 0 for k in ("compute_s", "memory_s", "collective_s")):
+            fail(f"[dryrun] record incomplete: {rec}")
+    print(f"[dryrun] {len(records)} records of {DRYRUN['arch']} on pod16x16, ok; the process "
+          f"ran beside the card's phases from {t0 - started:.1f} s before this phase; waited "
+          f"{time.perf_counter() - t0:.1f} s for it", flush=True)
+    return records
+
+
 def ssd_bwd_bytes(B: int, H: int, L: int, P: int, N: int, group: int, bc_size: int) -> dict:
     """The bytes each launch of the SSD backward's tensor-core design reads
     and writes, by arithmetic from the design (each read and write the
@@ -2601,6 +2842,7 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
 
+    dryrun = start_dryrun()
     t0 = time.perf_counter()
     reports = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -2678,6 +2920,14 @@ def main() -> None:
     stamp("training")
     gc.collect()
     torch.cuda.empty_cache()
+    t_mesh = time.perf_counter()
+    mesh_phase(dev)
+    stamp("mesh")
+    train_mesh_phase(dev)
+    mesh_s = time.perf_counter() - t_mesh
+    stamp("train-mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     served = serve_phase(DENSE, ("flash_attention", "paged_attention"), "serve")
     profile_decode(served["server"], "profile")
@@ -2713,6 +2963,12 @@ def main() -> None:
     width_runs = width_phases(dev, stamp)
     gc.collect()
     torch.cuda.empty_cache()
+    t_roof = time.perf_counter()
+    roofline_phase(trained, trained_hybrid, width_runs[LLAMA3], smi)
+    dryrun_phase(*dryrun)
+    print(f"[time] [mesh], [train-mesh], [roofline] and the wait for [dryrun] took "
+          f"{mesh_s + time.perf_counter() - t_roof:.1f} s together", flush=True)
+    stamp("roofline and dryrun")
     embed_runs = new_model_phases(dev, stamp)
     gc.collect()
     torch.cuda.empty_cache()

@@ -23,10 +23,15 @@ Layout (one directory per step)::
   logical dtype in the manifest. A checkpoint of a dict tree written by
   either package restores in the other; that is how weights carry across.
 
-One process and one device: every leaf is written whole (``p0``), and
-``restore`` places each leaf on the device of the ``like`` leaf it
-replaces (the reference's ``shardings`` re-mesh waits for the port's
-sharded path).
+Sharded trees: ``save`` gathers each DTensor leaf whole
+(``full_tensor()``, a collective, so every rank of the mesh calls it) and
+rank 0 alone writes; every leaf is stored whole (``p0``), so the format
+stays the reference's, with no layout in it. ``restore`` places each leaf
+on the device of the ``like`` leaf it replaces, or, given ``placements``
+(a tree of :class:`~repro_torch.distributed.sharding.Layout` shaped like
+``like``, the reference's ``shardings``), on the mesh and in the layout
+the new run chose: a checkpoint saved at one world size restores at
+another.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.training.tree import flatten_with_paths, leaves, unflatten
 
@@ -54,6 +61,8 @@ _EXOTIC_DTYPES = {
 def _to_host(leaf: Any) -> tuple[np.ndarray, str]:
     """A leaf as (numpy array to store, logical dtype name), in memory of
     its own: later in-place updates of ``leaf`` do not reach it."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         name = str(t.dtype).removeprefix("torch.")
@@ -104,9 +113,13 @@ class Checkpointer:
 
     # -- save ------------------------------------------------------------------
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None) -> str:
-        """Save a tree at ``step``. Returns the final directory path."""
+        """Save a tree at ``step``. Returns the final directory path. With
+        DTensor leaves every rank calls it; rank 0 writes."""
         self.wait()
         host = [(*_to_host(leaf), path) for path, leaf in flatten_with_paths(tree)]
+        final = self._step_dir(step)
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return final
         manifest = {
             "step": step,
             "time": time.time(),
@@ -125,7 +138,6 @@ class Checkpointer:
             ],
             "treedef": _treedef_repr(tree),
         }
-        final = self._step_dir(step)
 
         def write() -> None:
             tmp = f"{final}.tmp-{os.getpid()}-{threading.get_ident()}"
@@ -159,10 +171,12 @@ class Checkpointer:
             raise RuntimeError("async checkpoint save failed") from err
 
     # -- restore ---------------------------------------------------------------
-    def restore(self, like: Any, *, step: Optional[int] = None) -> tuple[Any, dict]:
+    def restore(self, like: Any, *, step: Optional[int] = None,
+                placements: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``like`` → (tree, metadata). Each
         leaf is a tensor of the stored dtype, on the device of the ``like``
-        leaf it replaces (the CPU where that leaf is not a tensor)."""
+        leaf it replaces (the CPU where that leaf is not a tensor), or with
+        ``placements`` a DTensor in the :class:`Layout` at its position."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -176,10 +190,16 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint has {len(manifest['leaves'])} leaves, expected {len(like_leaves)}"
             )
+        where = [None] * len(like_leaves) if placements is None else leaves(placements)
+        if len(where) != len(like_leaves):
+            raise ValueError(f"{len(where)} placements for {len(like_leaves)} leaves")
         out = []
-        for entry, ref in zip(manifest["leaves"], like_leaves):
+        for entry, ref, layout in zip(manifest["leaves"], like_leaves, where):
             t = _from_host(np.load(os.path.join(d, entry["file"])), entry["dtype"])
-            out.append(t.to(ref.device) if isinstance(ref, torch.Tensor) else t)
+            if layout is not None:
+                out.append(layout.place(t.to(layout.mesh.device_type)))
+            else:
+                out.append(t.to(ref.device) if isinstance(ref, torch.Tensor) else t)
         return unflatten(like, out), manifest["metadata"]
 
     # -- bookkeeping -----------------------------------------------------------

@@ -69,6 +69,24 @@ TPU_V5E = HardwareSpec(
     accelerators_per_node=4,  # 2x2 tray
 )
 
+#: The port's card: NVIDIA H100 SXM5 80GB, data-sheet dense rates at the
+#: full 700 W power limit (989 TFLOP/s bf16, 3.35 TB/s HBM3). ``ici_bw`` is
+#: the per-GPU InfiniBand NDR rate (400 Gb/s = 50 GB/s a direction): the
+#: production meshes' 16-wide model axis spans two 8-GPU nodes, so its rings
+#: cross the network; inside a node NVLink 4 gives 450e9 B/s a direction.
+#: ``cost_per_hour``: AWS p5.48xlarge (8 x H100 SXM) on-demand in us-east-1,
+#: $98.32 an hour at its 2023 launch list price, per GPU.
+H100_SXM = HardwareSpec(
+    name="H100-SXM-80GB",
+    hbm_bytes=80e9,
+    mem_util=0.90,
+    cost_per_hour=98.32 / 8,
+    peak_flops_bf16=989e12,
+    hbm_bw=3.35e12,
+    ici_bw=50e9,
+    accelerators_per_node=8,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class KVModelSpec:

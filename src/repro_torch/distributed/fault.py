@@ -1,12 +1,14 @@
-"""Fault tolerance: failure detection, the straggler policy, the mesh
-shape a restart would take.
+"""Fault tolerance: failure detection, the straggler policy, elastic
+re-meshing (counterpart of ``repro.distributed.fault``).
 
-Copies from ``repro.distributed.fault``: :class:`HealthMonitor` (the fleet
-simulator's fault injection, :mod:`repro_torch.sim.faults`, drives it on
-sim time), :class:`StepTimer` and :class:`SimulatedFailure` (the training
-launcher's straggler flag and restart drill) and
-:func:`largest_mesh_shape`. The reference's ``elastic_mesh`` belongs to
-the port's sharded path and is not here yet.
+:class:`HealthMonitor` (the fleet simulator's fault injection,
+:mod:`repro_torch.sim.faults`, drives it on sim time), :class:`StepTimer`
+and :class:`SimulatedFailure` (the training launcher's straggler flag and
+restart drill), :func:`largest_mesh_shape` and :func:`elastic_mesh`: on a
+failure the launcher rebuilds the largest ``(data, model)`` mesh over the
+surviving ranks and restores the latest checkpoint onto it (the format is
+layout-free; :meth:`repro_torch.checkpoint.Checkpointer.restore` places
+each leaf on the new mesh).
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 
 @dataclasses.dataclass
@@ -81,6 +87,23 @@ def largest_mesh_shape(
     if max_data is not None:
         data = min(data, max_data)
     return data, model_parallel
+
+
+def elastic_mesh(
+    ranks: Optional[Sequence[int]] = None,
+    *,
+    model_parallel: int = 1,
+    axis_names: tuple[str, str] = ("data", "model"),
+    device_type: str = "cuda",
+) -> DeviceMesh:
+    """The largest ``(data, model)`` mesh over ``ranks`` (the surviving
+    ranks; every rank of the process group by default), as new groups over
+    them. Every rank of the process group calls it; a rank left out holds
+    no coordinate on the mesh."""
+    ranks = sorted(range(dist.get_world_size()) if ranks is None else ranks)
+    data, model = largest_mesh_shape(len(ranks), model_parallel=model_parallel)
+    grid = torch.tensor(ranks[: data * model], dtype=torch.int64).view(data, model)
+    return DeviceMesh(device_type, grid, mesh_dim_names=axis_names)
 
 
 @dataclasses.dataclass

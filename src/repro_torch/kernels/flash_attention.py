@@ -281,7 +281,7 @@ def flash_attention(
     log-sum-exp, f32 (B, H, Lq), and the call returns (out, lse); serving
     leaves it off and its launches do no more work than before. No
     gradient: :class:`FlashAttention` is the differentiable call."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: shapes only, as the dry run runs it
         return flash_attention_plain(q, k, v, causal=causal, return_lse=return_lse)
     _check(q, k, v, causal)
     b, h, lq, d = q.shape
@@ -329,7 +329,7 @@ def flash_attention_backward(
     :func:`flash_attention_backward_plain` on the CPU. The gradients take
     the layouts of q, k and v (``empty_like``). The tensor-core variant runs
     :func:`backward_schedule`'s work list for the shape."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: shapes only, as the dry run runs it
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal)
     _check(q, k, v, causal)
     b, h, lq, d = q.shape

@@ -21,6 +21,17 @@ dtype, bf16 in the served model), and hands the kernel f32 x. Under
 autograd it goes through the scan's ``torch.autograd.Function``, and the
 fold and ``log_a = A·dt`` stay torch ops, so dt and A get their gradients
 from autograd.
+
+Attention also takes DTensors (the dense family's sharded path): the call
+runs on each rank's local shards through ``local_map``, so the kernels
+(their plain versions on CPU or meta tensors) see plain tensors. The batch
+and head dimensions may be sharded or replicated; any other sharded
+dimension is redistributed to replicated first (the ``kv_seq`` decode
+cache, gathered whole for the paged kernel). Where the query heads are
+sharded and the KV heads replicated (KV heads that do not divide the mesh
+axis), each rank takes the KV heads its query heads read, and their
+gradient is a partial sum over the ranks. :func:`write_slot` writes a
+decode step's K/V into a cache shard, sequence-sharded ones included.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_attention as _paged
@@ -36,6 +49,68 @@ from repro_torch.kernels import ssd_scan as _ssd
 
 #: KV positions per page of the slot-cache view (the vLLM block size).
 PAGE = 16
+
+
+_BATCH, _HEADS = 0, 2  # of (B, L, H, D) activations and (B, S, K, D) caches
+
+
+def _kv_heads_for(q: torch.Tensor, kv: tuple, mesh, mesh_dim: int) -> tuple:
+    """The KV heads (dim 2) that this rank's shard of query heads reads,
+    from replicated KV operands."""
+    h_local, n_kv = q.shape[_HEADS], kv[0].shape[_HEADS]
+    group = h_local * mesh.size(mesh_dim) // n_kv  # query heads a KV head
+    first = mesh.get_local_rank(mesh_dim) * h_local
+    if h_local % group == 0:
+        sl = slice(first // group, (first + h_local) // group)
+    elif group % h_local == 0:
+        sl = slice(first // group, first // group + 1)
+    else:
+        raise ValueError(
+            f"{h_local} query heads a rank cannot take whole KV heads of {group} query heads"
+        )
+    return tuple(t[:, :, sl] for t in kv)
+
+
+def _on_shards(fn, q: DTensor, kv: tuple, extra: tuple = ()):
+    """``fn(q, *kv, *extra)`` on each rank's local shards → a DTensor laid
+    out as ``q``. ``q`` and ``kv`` keep their batch and head sharding,
+    everything else is replicated first; ``extra`` (per-sequence vectors)
+    follow ``q``'s batch sharding."""
+    mesh = q.device_mesh
+    q_pl = tuple(p if isinstance(p, Shard) and p.dim in (_BATCH, _HEADS) else Replicate()
+                 for p in q.placements)
+    kv_pl, kv_grad, e_pl = [], [], []
+    for i, p in enumerate(q_pl):
+        if p == Shard(_BATCH):
+            kv_pl.append(p), kv_grad.append(p), e_pl.append(Shard(0))
+            continue
+        e_pl.append(Replicate())
+        if p == Shard(_HEADS) and all(t.placements[i] == p for t in kv):
+            kv_pl.append(p), kv_grad.append(p)
+        else:  # a head-sharded q reads a replicated KV's heads: partial gradients
+            kv_pl.append(Replicate())
+            kv_grad.append(Partial() if p == Shard(_HEADS) else Replicate())
+    head_dims = [i for i, p in enumerate(q_pl) if p == Shard(_HEADS)]
+    sliced = [i for i in head_dims if kv_pl[i] == Replicate()]
+    if sliced and len(head_dims) > 1:
+        raise ValueError(f"query heads sharded over mesh dims {head_dims}, KV heads replicated")
+    kv_pl, kv_grad, e_pl = tuple(kv_pl), tuple(kv_grad), tuple(e_pl)
+    q = q.redistribute(mesh, q_pl)
+    kv = tuple(t.redistribute(mesh, kv_pl) for t in kv)
+    extra = tuple(t.redistribute(mesh, e_pl) for t in extra)
+
+    def local(q_l, *rest):
+        kv_l, extra_l = rest[:len(kv)], rest[len(kv):]
+        if sliced:
+            kv_l = _kv_heads_for(q_l, kv_l, mesh, sliced[0])
+        return fn(q_l, *kv_l, *extra_l)
+
+    return local_map(
+        local, out_placements=list(q_pl),  # a list: one output (a tuple would be one a value)
+        in_placements=(q_pl, *(kv_pl,) * len(kv), *(e_pl,) * len(extra)),
+        in_grad_placements=(q_pl, *(kv_grad,) * len(kv), *(e_pl,) * len(extra)),
+        device_mesh=mesh,
+    )(q, *kv, *extra)
 
 
 def flash_attention(
@@ -48,7 +123,10 @@ def flash_attention(
     """Prefill attention in the model layout; returns (B, L, H, D). With
     grad mode on and an input that requires grad it goes through
     :class:`~repro_torch.kernels.flash_attention.FlashAttention`, whose
-    backward is the backward kernel (its plain version on the CPU)."""
+    backward is the backward kernel (its plain version on the CPU).
+    DTensors run on their local shards."""
+    if isinstance(q, DTensor):
+        return _on_shards(functools.partial(flash_attention, causal=causal), q, (k, v))
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _flash.FlashAttention.apply(qh, kh, vh, causal).transpose(1, 2)
@@ -76,7 +154,15 @@ def slot_decode_attention(
     k_scale: Optional[torch.Tensor] = None,  # (B, S, K, 1) for an int8 cache
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Decode attention over one layer's slot cache, as pages; (B, 1, H, D)."""
+    """Decode attention over one layer's slot cache, as pages; (B, 1, H, D).
+    DTensors run on their local shards (a sequence-sharded cache gathered
+    whole)."""
+    if isinstance(q, DTensor):
+        kv = (k_cache, v_cache) + ((k_scale, v_scale) if k_scale is not None else ())
+        return _on_shards(
+            lambda q_l, *rest: slot_decode_attention(q_l, *rest[:2], rest[-1], *rest[2:-1]),
+            q, kv, (lengths,),
+        )
     b, s, n_kv, d = k_cache.shape
     bt = slot_block_table(b, s, k_cache.device)
 
@@ -88,6 +174,45 @@ def slot_decode_attention(
         pages(k_scale), pages(v_scale),
     )
     return out[:, None]
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+                write: torch.Tensor, offset: int, sharded: bool) -> None:
+    if not sharded:
+        cache[rows, write] = new
+        return
+    # a sequence shard holds positions [offset, offset + S_local): write
+    # only the slots whose position falls there
+    pos = write - offset
+    inside = ((pos >= 0) & (pos < cache.shape[1])).view(-1, *[1] * (new.dim() - 1))
+    pos = pos.clamp(0, cache.shape[1] - 1)
+    cache[rows, pos] = torch.where(inside, new, cache[rows, pos])
+
+
+def write_slot(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
+               write: torch.Tensor) -> None:
+    """``cache[rows[b], write[b]] = new[b]`` for every slot ``b``, in place:
+    one layer's cache (B, S, ...) takes a decode step's (B, ...) at position
+    ``write`` (B,); ``rows`` is ``arange(B)``, made once a step by the
+    caller. A DTensor cache is written shard by shard (its own rows), ``new``
+    and ``write`` laid out to follow it; a sequence-sharded shard takes
+    only the positions it holds."""
+    if not isinstance(cache, DTensor):
+        _write_rows(cache, new, rows, write, 0, False)
+        return
+    mesh = cache.device_mesh
+    new_pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim >= 2
+                   else p if p == Shard(0) else Replicate() for p in cache.placements)
+    w_pl = tuple(p if p == Shard(0) else Replicate() for p in cache.placements)
+    seq_dims = [i for i, p in enumerate(cache.placements) if p == Shard(1)]
+    local = cache.to_local()
+    offset = 0
+    for i in seq_dims:  # DTensor nests the shards of one dim in mesh order
+        offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+    _write_rows(local, new.redistribute(mesh, new_pl).to_local(),
+                torch.arange(local.shape[0], device=local.device),
+                write.redistribute(mesh, w_pl).to_local(), offset * local.shape[1],
+                bool(seq_dims))
 
 
 def ssd_scan(

@@ -169,7 +169,7 @@ def paged_attention(
     a length past ``pps * page`` counts as ``pps * page``. Decode has no
     backward kernel: on CUDA inputs that require grad, with grad mode on,
     it raises rather than return an output with no gradient."""
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):  # meta: shapes only, as the dry run runs it
         return paged_attention_plain(
             q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales
         )

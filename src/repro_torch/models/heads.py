@@ -1,11 +1,14 @@
 """Output heads and the training loss (counterpart of
-``repro.models.heads``)."""
+``repro.models.heads``); the logits are laid out on the vocab axis
+(``constrain``) where the reference constrains them."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from repro_torch.distributed.sharding import constrain, replicate_like
 
 
 def _mask_padded(logits: torch.Tensor, valid_vocab: Optional[int]) -> torch.Tensor:
@@ -14,7 +17,7 @@ def _mask_padded(logits: torch.Tensor, valid_vocab: Optional[int]) -> torch.Tens
     v = logits.shape[-1]
     if valid_vocab is None or valid_vocab >= v:
         return logits
-    idx = torch.arange(v, device=logits.device)
+    idx = replicate_like(torch.arange(v, device=logits.device), logits)
     return torch.where(
         idx < valid_vocab, logits.float(), torch.finfo(torch.float32).min
     )
@@ -28,7 +31,7 @@ def lm_logits(
     valid_vocab: Optional[int] = None,
 ) -> torch.Tensor:
     logits = hidden @ (head.t() if tied else head)
-    return _mask_padded(logits, valid_vocab)
+    return constrain(_mask_padded(logits, valid_vocab), ("batch", None, "vocab"))
 
 
 def codebook_logits(
@@ -39,7 +42,7 @@ def codebook_logits(
 ) -> torch.Tensor:
     """MusicGen's multi-codebook heads: (B, L, D) x (K, D, V) → (B, L, K, V)."""
     logits = torch.einsum("bld,kdv->blkv", hidden, heads)
-    return _mask_padded(logits, valid_vocab)
+    return constrain(_mask_padded(logits, valid_vocab), ("batch", None, None, "vocab"))
 
 
 def softmax_xent(
@@ -56,7 +59,9 @@ def softmax_xent(
     lf = logits.float()
     labels = torch.as_tensor(labels, device=lf.device).long()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+    gold = torch.gather(lf, -1, labels[..., None])
+    # a vocab-sharded gather leaves a masked partial sum: reduce it here
+    gold = constrain(gold, ("batch", *[None] * (gold.dim() - 1)))[..., 0]
     nll = lse - gold
     if z_loss > 0.0:
         nll = nll + z_loss * lse.square()

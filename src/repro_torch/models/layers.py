@@ -2,14 +2,19 @@
 
 bf16 compute with f32 accumulation, as in the reference. Attention goes
 through :mod:`repro_torch.kernels.ops`: prefill to the flash kernel, decode
-to the paged kernel over the slot cache viewed as pages.
+to the paged kernel over the slot cache viewed as pages. On DTensors every
+tensor made here (RoPE tables, decode lengths) is replicated on the
+inputs' mesh, and the reference's ``constrain`` points call the port's.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import constrain, replicate_like
 from repro_torch.kernels import ops
 
 
@@ -19,6 +24,36 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     var = xf.square().mean(dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * (1.0 + weight.float())).to(x.dtype)
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. A DTensor table sharded on its vocab rows looks up
+    on each rank the tokens its rows hold (the rest are zero) and returns
+    a partial sum over the vocab's mesh axes, as Megatron's vocab-parallel
+    embedding does; its gradient stays with the rows."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    vocab_dims = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    tokens = replicate_like(tokens, table)
+    t_pl = tuple(Shard(0) if p == Shard(0) and i not in vocab_dims else Replicate()
+                 for i, p in enumerate(tokens.placements))
+    out_pl = [Partial() if i in vocab_dims else p for i, p in enumerate(t_pl)]
+    grad_pl = tuple(table.placements[i] if i in vocab_dims
+                    else Partial() if p == Shard(0) else Replicate() for i, p in enumerate(t_pl))
+
+    def local(tok: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        first = 0
+        for i in vocab_dims:  # DTensor nests the shards of one dim in mesh order
+            first = first * mesh.size(i) + mesh.get_local_rank(i)
+        rel = tok - first * rows.shape[0]
+        inside = ((rel >= 0) & (rel < rows.shape[0]))[..., None]
+        picked = rows[rel.clamp(0, rows.shape[0] - 1)]
+        return torch.where(inside, picked, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+    return local_map(local, out_placements=out_pl, in_placements=(t_pl, table.placements),
+                     in_grad_placements=(t_pl, grad_pl), device_mesh=mesh)(
+        tokens.redistribute(mesh, t_pl), table)
 
 
 def mlp(x: torch.Tensor, params: dict, activation: str) -> torch.Tensor:
@@ -32,6 +67,9 @@ def mlp(x: torch.Tensor, params: dict, activation: str) -> torch.Tensor:
         hidden = F.gelu(x @ params["w_up"], approximate="tanh")
     else:
         raise ValueError(f"unknown activation {activation!r}")
+    # the reference names the batch dimension None here, which would gather
+    # the batch shards of every hidden activation; the port keeps them
+    hidden = constrain(hidden, ("batch", None, "ffn"))
     return hidden @ params["w_down"]
 
 
@@ -41,7 +79,7 @@ def rope_angles(
     """positions (..., L) → cos/sin (..., L, head_dim/2) in f32."""
     half = head_dim // 2
     exponents = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / (theta ** exponents)
+    freqs = replicate_like(1.0 / (theta ** exponents), positions)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 
@@ -101,7 +139,7 @@ def decode_attention(
     masked (and never read by the kernel)."""
     b = q.shape[0]
     if isinstance(cur_len, int):
-        lengths = torch.full((b,), cur_len, dtype=torch.int32, device=q.device)
+        lengths = replicate_like(torch.full((b,), cur_len, dtype=torch.int32, device=q.device), q)
     else:
         lengths = cur_len.to(device=q.device, dtype=torch.int32).expand(b).contiguous()
     return ops.slot_decode_attention(q, k_cache, v_cache, lengths, k_scale, v_scale)

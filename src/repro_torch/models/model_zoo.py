@@ -3,7 +3,9 @@ the reference ships.
 
 ``Model(cfg, kv_dtype=..., moe_group=..., remat=...)`` exposes ``init`` /
 ``forward`` / ``loss`` / ``prefill`` / ``decode_step`` / ``init_cache``,
-the slot axis of every decode-state leaf (``cache_batch_axes``), the
+the dry run's shape-only surface (``abstract`` / ``axes`` for the
+parameters, ``cache_specs`` / ``cache_axes`` for the decode state), the
+slot axis of every decode-state leaf (``cache_batch_axes``), the
 inputs of a shape cell as meta tensors (``input_specs``) and the parameter
 counts (``active_param_count`` counts an MoE layer's top-k experts only);
 :func:`get_model` builds one by config name. The dense, MoE, vlm and audio
@@ -25,7 +27,13 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import resolve_device
 from repro_torch.models import hybrid, transformer, xlstm_model
-from repro_torch.models.params import init_params, param_bytes, param_count
+from repro_torch.models.params import (
+    abstract_params,
+    init_params,
+    param_axes,
+    param_bytes,
+    param_count,
+)
 from repro_torch.models.remat import REMAT_MODES
 
 KV_DTYPES = ("bf16", "int8")
@@ -70,6 +78,15 @@ class Model:
     # -- parameters ----------------------------------------------------------
     def init(self, seed: int = 0, *, device: str | torch.device = "cuda") -> dict:
         return init_params(self.defs, seed, device=device)
+
+    def abstract(self) -> dict:
+        """The parameters as meta tensors (shapes and dtypes, no memory)."""
+        return abstract_params(self.defs)
+
+    def axes(self) -> dict:
+        """The logical sharding axes of every parameter, shaped like
+        :meth:`abstract`."""
+        return param_axes(self.defs)
 
     def param_count(self) -> int:
         return param_count(self.defs)
@@ -125,6 +142,24 @@ class Model:
             device=resolve_device(device), **self._kw,
         )
 
+    def cache_specs(self, cell: ShapeCell) -> Any:
+        """The decode state of a decode cell as meta tensors: the leaves the
+        reference's ``cache_specs`` gets from ``jax.eval_shape`` of a prefill
+        of ``cell.seq_len`` tokens (bf16 activations), in the port's layout
+        (one layer-ordered KV pair where maverick's reference keeps one pair
+        a block kind)."""
+        return self.init_cache(cell, device="meta")
+
+    def cache_axes(self, cell: ShapeCell, *, kv_shardable: bool = True) -> Any:
+        """The logical axes of every :meth:`cache_specs` leaf, by the
+        reference's shape rules; ``kv_shardable=False`` (KV heads that do not
+        divide the model axis, or an unsharded batch) lays the KV cache out
+        along its sequence (``kv_seq``) instead of its heads."""
+        from repro_torch.training.tree import map_tree  # training imports this module
+
+        return map_tree(lambda leaf: _cache_leaf_axes(leaf.shape, self.cfg, kv_shardable),
+                        self.cache_specs(cell))
+
     def cache_batch_axes(self) -> Any:
         """The slot axis of each decode-state leaf, as a tree shaped like
         :meth:`init_cache`'s (the reference's ``SlotKVCache.batch_axes``)."""
@@ -158,6 +193,48 @@ class Model:
         elif cell.kind == "decode":
             specs["index"] = meta((), torch.int32)
         return specs
+
+    def input_axes(self, cell: ShapeCell) -> dict:
+        """The logical axes of every :meth:`input_specs` entry (the second
+        half of the reference's ``input_specs``)."""
+        cfg = self.cfg
+        axes: dict = {}
+        if cfg.frontend == "tokens":
+            axes["tokens"] = ("batch", None)
+        else:
+            axes["embeds"] = ("batch", None, "embed")
+        if cfg.pos_type == "mrope":
+            axes["positions"] = (None, "batch", None)
+        if cfg.cross_attention:
+            axes["memory"] = ("batch", None, "embed")
+        if cell.kind == "train":
+            axes["labels"] = ("batch", None, None) if cfg.n_codebooks > 0 else ("batch", None)
+        elif cell.kind == "decode":
+            axes["index"] = ()
+        return axes
+
+
+def _cache_leaf_axes(shape: tuple, cfg: ArchConfig, kv_shardable: bool) -> tuple:
+    """Logical axes of one decode-state leaf by its shape (the reference's
+    rule of the same name)."""
+    nd = len(shape)
+    # KV caches (layers or groups, B, S, K, Dh) and int8 scales (…, K, 1)
+    if nd == 5 and shape[-1] in (cfg.head_dim, 1) and shape[-2] == cfg.n_kv_heads:
+        if kv_shardable and cfg.n_kv_heads > 1:
+            return ("layers", "serve_batch", None, "kv_heads", None)
+        return ("layers", "serve_batch", "kv_seq", None, None)
+    # Mamba SSD state (groups, sub, B, H, P, N)
+    if cfg.family == "hybrid" and nd == 6 and cfg.ssm_state and shape[-1] == cfg.ssm_state:
+        return ("layers", None, "serve_batch", "ssm_heads", None, None)
+    # Mamba conv state (groups, sub, B, K-1, conv_dim)
+    if cfg.family == "hybrid" and nd == 5 and shape[-2] == cfg.ssm_conv - 1:
+        return ("layers", None, "serve_batch", None, None)
+    if cfg.family == "ssm":
+        # mLSTM C / n: batch at axis 2; sLSTM c / n / h / m: batch at axis 1
+        if nd >= 5:
+            return ("layers", None, "serve_batch", *[None] * (nd - 3))
+        return ("layers", "serve_batch", *[None] * (nd - 2))
+    return (None,) * nd
 
 
 @functools.lru_cache(maxsize=None)

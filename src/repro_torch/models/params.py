@@ -2,8 +2,9 @@
 
 Models declare parameters as a nested dict of :class:`ParamDef`; from one
 declaration come the materialized tensors (:func:`init_params`, from a
-seeded ``torch.Generator``), the parameter count and byte size. The
-materialized tree is a nested dict of tensors in the reference's layout,
+seeded ``torch.Generator``), their shape-only stand-ins on the meta device
+(:func:`abstract_params`), their logical sharding axes (:func:`param_axes`),
+the parameter count and byte size. The materialized tree is a nested dict of tensors in the reference's layout,
 so :func:`params_from_numpy` can carry a reference parameter tree (as
 numpy arrays) across unchanged.
 """
@@ -85,6 +86,23 @@ def init_params(
     tree: dict = {}
     for path, d in _leaves(defs):
         _set(tree, path, _init_leaf(d, gen, dev))
+    return tree
+
+
+def abstract_params(defs: Any) -> dict:
+    """Meta-device stand-ins with the declared shapes and dtypes (the dry
+    run's parameters: no memory is allocated)."""
+    tree: dict = {}
+    for path, d in _leaves(defs):
+        _set(tree, path, torch.empty(d.shape, dtype=d.dtype, device="meta"))
+    return tree
+
+
+def param_axes(defs: Any) -> dict:
+    """The tree of logical-axis tuples, aligned with the parameter tree."""
+    tree: dict = {}
+    for path, d in _leaves(defs):
+        _set(tree, path, d.axes)
     return tree
 
 

@@ -49,10 +49,13 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain, replicate_like
+from repro_torch.kernels.ops import write_slot
 from repro_torch.models import heads as heads_lib
 from repro_torch.models.layers import (
     apply_rope,
     decode_attention,
+    embed_lookup,
     flash_attention,
     mlp,
     mrope_angles,
@@ -234,6 +237,14 @@ def _out_proj(o: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
     return o.reshape(b, l, -1) @ w_o.reshape(-1, w_o.shape[-1])
 
 
+def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``x + out``, a sublayer's output laid out as the residual stream
+    first: on DTensors that is the all-reduce of its partial sums over the
+    model axis (left alone, DTensor would carry the whole residual stream
+    as a partial sum and reduce it piecemeal at every use)."""
+    return x + constrain(out, ("batch", None, "embed"))
+
+
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(position, head) symmetric int8 quantization over the last axis:
     f32 amax, round half to even, clip to ±127; the scale (..., 1) in f16."""
@@ -260,11 +271,13 @@ def _self_attention_full(x, p, cos, sin, cfg: ArchConfig, kv_dtype: str = "bf16"
     xn = rms_norm(x, p["attn_norm"], cfg.norm_eps)
     q, k, v = _project_qkv(xn, p)
     q, k = _rope(q, k, cos, sin)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_heads", None))
     o = flash_attention(q, k, v, causal=True)
     if kv_dtype == "int8":
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        return x + _out_proj(o, p["w_o"]), (kq, vq, ks, vs)
-    return x + _out_proj(o, p["w_o"]), (k, v)
+        return _residual(x, _out_proj(o, p["w_o"])), (kq, vq, ks, vs)
+    return _residual(x, _out_proj(o, p["w_o"])), (k, v)
 
 
 def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, cache, rows, write, lengths):
@@ -279,13 +292,15 @@ def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, cache, rows, write, 
     scales = cache[2:]
     if scales:
         kvq, kvs = quantize_kv(torch.stack([k[:, 0], v[:, 0]]))  # both in one pass
-        k_cache[rows, write], v_cache[rows, write] = kvq[0], kvq[1]
-        scales[0][rows, write], scales[1][rows, write] = kvs[0], kvs[1]
+        write_slot(k_cache, kvq[0], rows, write)
+        write_slot(v_cache, kvq[1], rows, write)
+        write_slot(scales[0], kvs[0], rows, write)
+        write_slot(scales[1], kvs[1], rows, write)
     else:
-        k_cache[rows, write] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, write] = v[:, 0].to(v_cache.dtype)
+        write_slot(k_cache, k[:, 0].to(k_cache.dtype), rows, write)
+        write_slot(v_cache, v[:, 0].to(v_cache.dtype), rows, write)
     o = decode_attention(q, k_cache, v_cache, lengths, *scales)
-    return x + _out_proj(o, p["w_o"])
+    return _residual(x, _out_proj(o, p["w_o"]))
 
 
 def _memory_kv(p: dict, memory: torch.Tensor):
@@ -312,7 +327,7 @@ def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool, group: int, capacity_fact
     """The MLP or MoE sublayer → (x, aux loss or None)."""
     xn = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if not is_moe:
-        return x + mlp(xn, p, cfg.activation), None
+        return _residual(x, mlp(xn, p, cfg.activation)), None
     out, aux = moe_layer(xn, p["moe"], n_experts=cfg.n_experts, top_k=cfg.top_k,
                          activation=cfg.activation, group_size=group,
                          capacity_factor=capacity_factor)
@@ -327,10 +342,10 @@ def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool, group: int, capacity_fact
 def _embed_input(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     if cfg.frontend != "tokens":
         return batch["embeds"]
-    x = params["embed"][batch["tokens"].long()]
+    x = embed_lookup(batch["tokens"].long(), params["embed"])
     if cfg.tie_embeddings:  # gemma-style sqrt(d) scaling
         x = x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt().to(x.device)
-    return x
+    return constrain(x, ("batch", None, "embed"))
 
 
 def _angles(cfg: ArchConfig, batch: dict, positions: torch.Tensor):
@@ -376,7 +391,8 @@ def _run_full(params: dict, cfg: ArchConfig, batch: dict, *, kv_dtype: str = "bf
     kept only with ``keep_cache`` (prefill), else the list is empty."""
     x = _embed_input(params, cfg, batch)
     b, length = x.shape[:2]
-    cos, sin = _angles(cfg, batch, torch.arange(length, device=x.device).expand(b, length))
+    positions = replicate_like(torch.arange(length, device=x.device).expand(b, length), x)
+    cos, sin = _angles(cfg, batch, positions)
     memory = batch.get("memory")
     kvs = []
     aux = torch.zeros((), device=x.device)
@@ -458,7 +474,7 @@ def decode_step(
     k_all = caches[0]
     x = _embed_input(params, cfg, batch)
     b = x.shape[0]
-    index = torch.as_tensor(batch["index"], device=x.device).long().expand(b)
+    index = replicate_like(torch.as_tensor(batch["index"], device=x.device), x).long().expand(b)
     cos, sin = _angles(cfg, batch, index[:, None])
     lengths = (index + 1).to(torch.int32)
     # the reference's dynamic_update_slice clamps the write into the cache

@@ -1,6 +1,6 @@
 """Training: optimizers, the synthetic data pipeline and the train step
-(counterpart of ``repro.training``; ``abstract_train_state`` and
-``opt_state_axes`` belong to the sharded path and are not here yet)."""
+(counterpart of ``repro.training``), and the optimizer state's shape-only
+stand-ins and logical axes for the sharded path."""
 
 from repro_torch.training.data import DataConfig, SyntheticLM, make_batch_fn
 from repro_torch.training.optimizer import (
@@ -13,7 +13,13 @@ from repro_torch.training.optimizer import (
     get_optimizer,
     global_norm,
 )
-from repro_torch.training.train_loop import TrainConfig, init_train_state, make_train_step
+from repro_torch.training.train_loop import (
+    TrainConfig,
+    abstract_train_state,
+    init_train_state,
+    make_train_step,
+    opt_state_axes,
+)
 
 __all__ = [
     "DataConfig",
@@ -28,6 +34,8 @@ __all__ = [
     "get_optimizer",
     "global_norm",
     "TrainConfig",
+    "abstract_train_state",
     "init_train_state",
     "make_train_step",
+    "opt_state_axes",
 ]

@@ -6,9 +6,10 @@
 microbatch accumulation in f32, global-norm clipping, the cosine learning
 rate and the optimizer's update. Parameters and optimizer state are
 updated in place and returned (the reference donates its buffers to the
-jitted step instead). One device: the reference's shardings, and with them
-``abstract_train_state`` and ``opt_state_axes``, wait for the port's
-sharded path.
+jitted step instead). The step runs on plain tensors or on DTensors placed
+by :func:`repro_torch.distributed.sharding.tree_placements` over the
+parameters' axes and :func:`opt_state_axes`; :func:`abstract_train_state`
+gives the dry run its meta-device stand-ins.
 """
 
 from __future__ import annotations
@@ -19,8 +20,15 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import map_axes
 from repro_torch.models.model_zoo import Model
-from repro_torch.training.optimizer import clip_by_global_norm, cosine_schedule, get_optimizer
+from repro_torch.training.optimizer import (
+    AdafactorState,
+    AdamWState,
+    clip_by_global_norm,
+    cosine_schedule,
+    get_optimizer,
+)
 from repro_torch.training.tree import leaves
 
 
@@ -36,7 +44,10 @@ class TrainConfig:
 
 
 def _to_device(batch: dict, device: torch.device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """The batch's leaves as tensors on ``device``; a tensor already there
+    (a DTensor among them) is kept as it is."""
+    return {k: v if isinstance(v, torch.Tensor) and v.device == device
+            else torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
 def _split(batch: dict, n: int) -> list[dict]:
@@ -105,3 +116,27 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int = 0, *,
         p.requires_grad_(True)
     _, opt = make_train_step(model, tcfg)
     return params, opt.init(params)
+
+
+def abstract_train_state(model: Model, tcfg: TrainConfig):
+    """(parameters, optimizer state) as meta tensors: the dry run's
+    stand-ins, no memory allocated."""
+    params = model.abstract()
+    _, opt = make_train_step(model, tcfg)
+    return params, opt.init(params)
+
+
+def opt_state_axes(model: Model, tcfg: TrainConfig):
+    """Logical axes of the optimizer state, shaped like it: AdamW's moments
+    take the parameters' axes; Adafactor's row statistics drop a leaf's last
+    axis and its column statistics the one before it (a rank-1 leaf keeps
+    its axes in the rows and has a scalar column); the step count is a
+    scalar."""
+    p_axes = model.axes()
+    if tcfg.optimizer == "adamw":
+        return AdamWState(count=(), mu=p_axes, nu=p_axes)
+    return AdafactorState(
+        count=(),
+        vr=map_axes(lambda ax: ax[:-1] if len(ax) >= 2 else ax, p_axes),
+        vc=map_axes(lambda ax: ax[:-2] + ax[-1:] if len(ax) >= 2 else (), p_axes),
+    )

@@ -1,0 +1,193 @@
+"""One rank of the multi-process cases of ``tests/test_torch_sharding.py``
+and ``tests/test_torch_collectives.py``: a gloo process group on the CPU,
+rendezvous through a file, results saved with ``torch.save`` for the test
+to compare with its single-process runs.
+
+    python tests/torch_mesh_worker.py --phase world2 --rank 0 --world 2 \\
+        --init <file> --out <dir>
+
+``world2`` (two ranks on a 1 x 2 mesh): the losses and gradients, and a
+decode step on a placed cache, of reduced yi-6b and gemma-2b with f32
+parameters; three AdamW steps of reduced yi-6b, a checkpoint, and the
+next step's loss. ``world1`` (one rank): that checkpoint restored onto a
+1 x 1 mesh through ``placements=`` and the next step's loss; the training
+launcher on the mesh. ``collectives`` (any world): two rounds of
+``compressed_all_reduce`` over the world.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import ShapeCell, get_config
+from repro_torch.distributed.collectives import compressed_all_reduce
+from repro_torch.distributed.sharding import distribute_tree, tree_placements, use_rules
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.policy import build_policy
+from repro_torch.launch.train import train
+from repro_torch.models import Model
+from repro_torch.training import TrainConfig, make_train_step, opt_state_axes
+from repro_torch.training.tree import flatten_with_paths, leaves, map_tree
+
+ARCHS = ("yi-6b", "gemma-2b")
+TRAIN = ShapeCell("mesh_train", "train", 16, 2)
+DECODE = ShapeCell("mesh_decode", "decode", 32, 2)
+DECODE_INDEX = (20, 5)  # one position in each half of the 32-position cache
+CKPT_STEPS = 3
+TCFG = TrainConfig(total_steps=8, warmup_steps=1)
+#: The launcher's run on the mesh (``world1``) and the test's plain run.
+LAUNCH = dict(steps=2, seq_len=32, global_batch=4, device="cpu", ckpt_every=100, log_every=100)
+
+
+def f32_params(model: Model) -> dict:
+    """Seeded parameters in f32, w_q and w_k tempered by 0.1 as the repo's
+    comparisons do (the reference's init leaves attention near arg-max,
+    where f32 rounding of a reordered sum is amplified ~1e3 times)."""
+    params = map_tree(lambda t: t.float(), model.init(0, device="cpu"))
+    for key in ("w_q", "w_k"):
+        params["blocks"][key].mul_(0.1)
+    return params
+
+
+def train_batch(cfg, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(TRAIN.global_batch, TRAIN.seq_len + 1))
+    return {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
+            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
+
+
+def decode_inputs(model: Model) -> tuple[tuple, dict]:
+    """A cache of seeded bf16 values and one decode step's batch."""
+    rng = np.random.default_rng(1)
+    cache = tuple(torch.as_tensor(rng.normal(size=t.shape), dtype=torch.float32).to(t.dtype)
+                  for t in model.cache_specs(DECODE))
+    toks = rng.integers(0, model.cfg.vocab, size=(DECODE.global_batch, 1))
+    return cache, {"tokens": torch.as_tensor(toks, dtype=torch.int32),
+                   "index": torch.tensor(DECODE_INDEX, dtype=torch.int32)}
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def model_case(mesh, arch: str, out: dict) -> None:
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    plain = f32_params(model)
+    rules = build_policy(cfg, TRAIN, mesh).rules
+    params = distribute_tree(plain, tree_placements(model.axes(), mesh, rules))
+    p_leaves = leaves(params)
+    for p in p_leaves:
+        p.requires_grad_(True)
+    batch = distribute_tree(train_batch(cfg), tree_placements(model.input_axes(TRAIN), mesh, rules))
+    with use_rules(rules):
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, p_leaves)
+    out[f"{arch}/loss"] = full(loss).detach()
+    for (path, _), g in zip(flatten_with_paths(params), grads):
+        out[f"{arch}/grad{path}"] = full(g)
+
+    policy = build_policy(cfg, DECODE, mesh)
+    cache, batch = decode_inputs(model)
+    cache_axes = model.cache_axes(DECODE, kv_shardable=policy.kv_heads_sharded)
+    cache = distribute_tree(cache, tree_placements(cache_axes, mesh, policy.rules))
+    out[f"{arch}/cache_placements"] = [str(t.placements) for t in cache]
+    params = distribute_tree(plain, tree_placements(model.axes(), mesh, policy.rules))
+    batch = distribute_tree(batch, tree_placements(model.input_axes(DECODE), mesh, policy.rules))
+    with use_rules(policy.rules), torch.no_grad():
+        logits, cache = model.decode_step(params, cache, batch)
+    out[f"{arch}/decode_logits"] = full(logits)
+    out[f"{arch}/decode_cache"] = [full(t) for t in cache]
+
+
+def train_state(mesh, model: Model):
+    step_fn, opt = make_train_step(model, TCFG)
+    plain = f32_params(model)
+    rules = build_policy(model.cfg, TRAIN, mesh).rules
+    placed = {"p": tree_placements(model.axes(), mesh, rules),
+              "o": tree_placements(opt_state_axes(model, TCFG), mesh, rules)}
+    b_layout = tree_placements(model.input_axes(TRAIN), mesh, rules)
+    return step_fn, opt, plain, rules, placed, b_layout
+
+
+def ckpt_case(mesh, ckpt_dir: str, out: dict) -> None:
+    """Three steps, a checkpoint, and the loss of the step after it."""
+    model = Model(get_config("yi-6b").reduced())
+    step_fn, opt, plain, rules, placed, b_layout = train_state(mesh, model)
+    params = distribute_tree(plain, placed["p"])
+    opt_state = distribute_tree(opt.init(plain), placed["o"])
+    with use_rules(rules):
+        for i in range(CKPT_STEPS + 1):
+            if i == CKPT_STEPS:
+                Checkpointer(ckpt_dir).save(i, {"p": params, "o": opt_state})
+            batch = distribute_tree(train_batch(model.cfg, i), b_layout)
+            params, opt_state, metrics = step_fn(params, opt_state, batch, i)
+    out["ckpt/next_loss"] = full(metrics["loss"])
+
+
+def restore_case(mesh, ckpt_dir: str, out: dict) -> None:
+    """The checkpoint restored onto this mesh, then the step after it."""
+    model = Model(get_config("yi-6b").reduced())
+    step_fn, opt, plain, rules, placed, b_layout = train_state(mesh, model)
+    state, _ = Checkpointer(ckpt_dir).restore({"p": plain, "o": opt.init(plain)},
+                                              placements=placed)
+    out["ckpt/placements"] = str(leaves(state["p"])[0].placements)
+    batch = distribute_tree(train_batch(model.cfg, CKPT_STEPS), b_layout)
+    with use_rules(rules):
+        _, _, metrics = step_fn(state["p"], state["o"], batch, CKPT_STEPS)
+    out["ckpt/next_loss"] = full(metrics["loss"])
+
+
+def collectives_case(out: dict) -> None:
+    """Two rounds of ``compressed_all_reduce`` over the world, each rank
+    with its own seeded gradient in f32 and bf16."""
+    rank = dist.get_rank()
+    rng = np.random.default_rng(10 + rank)
+    for dtype in (torch.float32, torch.bfloat16):
+        err = None
+        for r in range(2):
+            x = torch.as_tensor(rng.normal(scale=1 + rank, size=(257,)), dtype=torch.float32)
+            x = x.to(dtype)
+            mean, err = compressed_all_reduce(x, None, err)
+            name = str(dtype).removeprefix("torch.")
+            out[f"comp/{name}/{r}/x"], out[f"comp/{name}/{r}/mean"] = x, mean
+            out[f"comp/{name}/{r}/err"] = err
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=["world2", "world1", "collectives"], required=True)
+    ap.add_argument("--rank", type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--init", required=True, help="rendezvous file")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args()
+    torch.set_num_threads(1)  # ranks share the host's cores with each other
+    dist.init_process_group("gloo", init_method=f"file://{args.init}", rank=args.rank,
+                            world_size=args.world)
+    mesh = make_host_mesh(model_parallel=args.world, device_type="cpu")
+    out: dict = {}
+    ckpt_dir = os.path.join(args.out, "ckpt")
+    if args.phase == "world2":
+        for arch in ARCHS:
+            model_case(mesh, arch, out)
+        ckpt_case(mesh, ckpt_dir, out)
+    elif args.phase == "world1":
+        restore_case(mesh, ckpt_dir, out)
+        run = train("yi-6b", ckpt_dir=os.path.join(args.out, "launch"), **LAUNCH)
+        out["launch/losses"] = torch.tensor(run["losses"])
+    else:
+        collectives_case(out)
+    torch.save(out, os.path.join(args.out, f"{args.phase}_rank{args.rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
