@@ -71,7 +71,21 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    step (its loss must equal the uninterrupted run's), destroys the group
    and runs the same 3 steps on plain tensors: each loss within 1e-3
    (bit-equality printed), the flash forward and backward counters equal
-   on the two paths, both step times printed;
+   on the two paths, both step times printed. Before it, on the same
+   group: ``[decode-mesh-moe]`` prefills 8 slots of qwen3-235b-a22b at full
+   width with 2 of 94 layers and an int8 KV cache, then decodes 16 greedy
+   steps on DTensors (the experts sharded on the model axis) and on plain
+   tensors: the tokens identical, the int8 paged kernel's launches equal,
+   one more mesh step under ``CommCounter`` with no all-gather of an
+   expert weight and every expert leaf still placed as it was, both step
+   times printed; and the mesh side of ``[train-mesh-hybrid]``: 4 steps of
+   zamba2-2.7b at full width with one group of 6 Mamba-2 blocks (the shared
+   attention applied once), B 2 x L 2048, through ``launch.train.train`` on
+   DTensors, no checkpoint written. Its plain side runs after
+   ``[train-mesh]`` (``train`` takes the mesh path while a group is up):
+   each loss within 1e-3 (bit-equality printed), the SSD scan's forward and
+   backward and flash's forward and backward launched as often on both
+   sides, both step times printed;
 3. serves 16 requests through the port's ``TwoPoolServer`` on full-width
    yi-6b (random bf16 weights from a seed): short pool c_max 512 with 8
    slots, long pool c_max 2048 with 2 slots. The kernels' launch counters
@@ -205,7 +219,10 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    ``sim_decode_telemetry`` with the telemetry run's launches;
    ``flash_attention_bwd`` with the ``[train]`` run's launches,
    ``flash_attention_bwd_d80`` and ``ssd_scan_bwd`` with
-   ``[train-hybrid]``'s), the card's name
+   ``[train-hybrid]``'s, and with ``ssd_scan`` and ``flash_attention_d80``
+   ``[train-mesh-hybrid]``'s in ``launches_by_path``;
+   ``paged_attention_int8_g16``, held in phase 2 at qwen3's H 64 K 4 on
+   int8 pages, with ``[decode-mesh-moe]``'s), the card's name
    and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -286,8 +303,15 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_backward_plain,
     ssd_scan_plain,
 )
+from repro_torch.distributed.sharding import (  # noqa: E402
+    distribute_tree,
+    tree_placements,
+    use_rules,
+)
 from repro_torch.launch.analytic_cost import cell_cost  # noqa: E402
+from repro_torch.launch.comm_count import CommCounter  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.policy import build_policy  # noqa: E402
 from repro_torch.launch.roofline import Roofline, model_flops_estimate  # noqa: E402
 from repro_torch.launch.serve import run_workload, serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -318,7 +342,7 @@ from repro_torch.training import (  # noqa: E402
     init_train_state,
     make_train_step,
 )
-from repro_torch.training.tree import leaves  # noqa: E402
+from repro_torch.training.tree import flatten_with_paths, leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor-core
 # rates, the float32 rate outside the tensor cores, and HBM3; the bf16 rate
@@ -549,6 +573,17 @@ SSD_FWD_KERNEL_RE = r"ssd_scan_kernel<"
 # checkpoint at ``ckpt_at`` restored onto the mesh (``placements=``); steps
 # 1 to ``ckpt_at`` - 1 are timed, as no checkpoint write overlaps them.
 MESH_TRAIN = dict(layers=4, batch=2, seq=2048, steps=4, ckpt_at=3, loss_rtol=1e-3)
+# ``[train-mesh-hybrid]``: zamba2 at full width with one group of Mamba-2
+# blocks (``layers`` = its ``attn_every``: the fewest that apply the shared
+# attention once), B x L tokens, ``steps`` steps through
+# ``launch.train.train`` on DTensors and on plain tensors, no checkpoint
+# written; steps 1 to ``steps`` - 1 timed.
+MESH_TRAIN_HYBRID = dict(layers=6, batch=2, seq=2048, steps=4, loss_rtol=1e-3)
+# ``[decode-mesh-moe]``: qwen3-235b-a22b at full width, ``layers`` of its 94,
+# an int8 KV cache of ``slots`` x ``c_max`` (the short pool's), a prefill of
+# ``prompt`` tokens a slot, then ``steps`` greedy decode steps, on DTensors
+# and on plain tensors; steps 1 to ``steps`` - 1 timed.
+MESH_DECODE_MOE = dict(layers=2, slots=8, c_max=512, prompt=128, steps=16)
 # ``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on llama3-70b's
 # decode_32k and train_4k on the 16 x 16 mesh, a process of its own started
 # with the script and read after ``[roofline]``.
@@ -2345,6 +2380,183 @@ def train_mesh_phase(dev) -> dict:
     return dict(mesh_ms=mesh_ms, plain_ms=plain_ms, max_rel=max(rel), bit_equal=bit_equal)
 
 
+def hybrid_launches() -> dict:
+    return dict(ssd_fwd=ssd_scan.launches, ssd_bwd=ssd_scan_backward.launches,
+                flash_fwd=flash_attention.launches, flash_bwd=flash_attention_backward.launches)
+
+
+def train_mesh_hybrid_run(dev) -> dict:
+    """``[train-mesh-hybrid]``'s mesh side, on the ``[mesh]`` phase's group:
+    ``launch.train.train`` on zamba2 (MESH_TRAIN_HYBRID) on DTensors over
+    the one-rank mesh, no checkpoint written, the launch counters set to 0
+    just before and read just after. The plain side runs once
+    ``[train-mesh]`` has destroyed the group (``train_mesh_hybrid_phase``)."""
+    kw = MESH_TRAIN_HYBRID
+    cfg = cut_config(HYBRID, kw["layers"], "train-mesh-hybrid")
+    if cfg.n_layers != cfg.attn_every:
+        fail(f"[train-mesh-hybrid] {cfg.n_layers} blocks apply the shared attention "
+             f"{cfg.n_layers // cfg.attn_every} times, want once")
+    with tempfile.TemporaryDirectory() as d:
+        reset_counters()
+        out = train(cfg, ckpt_dir=d, ckpt_every=None, model_parallel=1, **_hybrid_run(dev))
+    out["launches"] = hybrid_launches()
+    out["cfg"] = cfg
+    return out
+
+
+def _hybrid_run(dev) -> dict:
+    kw = MESH_TRAIN_HYBRID
+    return dict(steps=kw["steps"], seq_len=kw["seq"], global_batch=kw["batch"], device=dev,
+                log_every=1000)
+
+
+def train_mesh_hybrid_phase(dev, mesh: dict) -> dict:
+    """``[train-mesh-hybrid]``: the plain side (no process group), the same
+    steps from the same seed, then the gates: each loss within
+    ``loss_rtol`` of the plain path's (bit-equality printed), and the SSD
+    scan's forward and backward and the flash forward and backward
+    launched as often on both sides (``local_map`` handed the kernels their
+    shards: the SSM heads for the scan, the attention heads for flash).
+    Prints both step times (steps 1 to ``steps`` - 1)."""
+    t0 = time.perf_counter()
+    kw = MESH_TRAIN_HYBRID
+    with tempfile.TemporaryDirectory() as d:
+        reset_counters()
+        plain = train(mesh["cfg"], ckpt_dir=d, ckpt_every=None, **_hybrid_run(dev))
+        plain_launches = hybrid_launches()
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"], plain["losses"])]
+    bit_equal = mesh["losses"] == plain["losses"]
+    timed = slice(1, kw["steps"])
+    mesh_ms, plain_ms = (1e3 * float(np.median(r["step_s"][timed])) for r in (mesh, plain))
+    print(f"[train-mesh-hybrid] losses on the mesh {mesh['losses']}, on plain tensors "
+          f"{plain['losses']}: largest relative difference {max(rel):.3g} (limit "
+          f"{kw['loss_rtol']}), bit-equal {bit_equal}; launches mesh {mesh['launches']}, plain "
+          f"{plain_launches}", flush=True)
+    print(f"[train-mesh-hybrid] step {mesh_ms:.1f} ms on DTensors against {plain_ms:.1f} ms on "
+          f"plain tensors ({mesh_ms / plain_ms:.2f}x; median of steps 1-{kw['steps'] - 1}, no "
+          f"checkpoint written, host clock; each step's seconds: mesh "
+          f"{[round(t, 4) for t in mesh['step_s']]}, plain "
+          f"{[round(t, 4) for t in plain['step_s']]}); plain side "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if max(rel) > kw["loss_rtol"]:
+        fail(f"[train-mesh-hybrid] mesh losses {mesh['losses']} against plain {plain['losses']}")
+    if mesh["launches"] != plain_launches or not all(plain_launches.values()):
+        fail(f"[train-mesh-hybrid] launches on the mesh {mesh['launches']}, plain "
+             f"{plain_launches}")
+    return dict(mesh_ms=mesh_ms, plain_ms=plain_ms, max_rel=max(rel), bit_equal=bit_equal,
+                launches=mesh["launches"])
+
+
+def decode_mesh_moe_phase(dev) -> dict:
+    """``[decode-mesh-moe]``, on the ``[mesh]`` phase's group: qwen3-235b-a22b
+    at full width with MESH_DECODE_MOE's layers and an int8 KV cache; each
+    slot's prompt prefilled and ``steps`` greedy decode steps, on DTensors
+    over the one-rank mesh (the policy's placements; the experts sharded on
+    the model axis) and on plain tensors, the launch counters set to 0
+    just before each side's decode steps and read just after. Gates: every
+    step's tokens identical on the two sides; the int8 paged kernel
+    launched as often on both; one more mesh decode step under
+    ``CommCounter`` all-gathers no expert weight, and every expert weight
+    keeps its placements. Prints both step times."""
+    t0 = time.perf_counter()
+    kw = MESH_DECODE_MOE
+    model = cut_model(MOE, kw["layers"], "decode-mesh-moe", kv_dtype="int8")
+    cfg = model.cfg
+    params = model.init(0, device=dev)
+    mesh = make_host_mesh(model_parallel=1)
+    cell = ShapeCell("decode-mesh-moe", "decode", kw["c_max"], kw["slots"])
+    prefill_cell = ShapeCell("decode-mesh-moe", "prefill", kw["prompt"], kw["slots"])
+    policy = build_policy(cfg, cell, mesh)
+    rng = np.random.default_rng(4)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab, (kw["slots"], kw["prompt"])),
+                              dtype=torch.int32, device=dev)
+    placed = tree_placements(model.axes(), mesh, policy.rules)
+    experts = {path: layout for path, layout in flatten_with_paths(placed)
+               if path.endswith(("['w_up']", "['w_gate']", "['w_down']")) and "moe" in path}
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def run(on_mesh: bool) -> dict:
+        p = distribute_tree(params, placed) if on_mesh else params
+        cache = model.init_cache(cell, device=dev)
+        if on_mesh:
+            axes = model.cache_axes(cell, kv_shardable=policy.kv_heads_sharded)
+            cache = distribute_tree(cache, tree_placements(axes, mesh, policy.rules))
+
+        def inputs(batch: dict, c: ShapeCell) -> dict:
+            if not on_mesh:
+                return batch
+            return distribute_tree(batch, tree_placements(model.input_axes(c), mesh,
+                                                          policy.rules))
+
+        tokens, walls = [], []
+        with use_rules(policy.rules), torch.no_grad():
+            logits, pre = model.prefill(p, inputs({"tokens": prompts}, prefill_cell))
+            for c, t in zip(cache, pre):
+                c[:, :, :kw["prompt"]].copy_(t)
+            tok = full(logits).argmax(-1).to(torch.int32)
+            reset_counters()
+            for i in range(kw["steps"]):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                index = torch.full((kw["slots"],), kw["prompt"] + i, dtype=torch.int32,
+                                   device=dev)
+                logits, cache = model.decode_step(
+                    p, cache, inputs({"tokens": tok[:, None], "index": index}, cell))
+                tok = full(logits).argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+                tokens.append(tok)
+            out = dict(tokens=torch.stack(tokens).cpu(), walls=walls,
+                       paged=paged_attention.launches, int8=cache[0].dtype == torch.int8)
+            if on_mesh:  # one more step, counted
+                index = torch.full((kw["slots"],), kw["prompt"] + kw["steps"], dtype=torch.int32,
+                                   device=dev)
+                with CommCounter() as counter:
+                    model.decode_step(p, cache, inputs({"tokens": tok[:, None], "index": index},
+                                                       cell))
+                out["records"] = counter.records
+                out["placements"] = {path: tuple(t.placements) for path, t in
+                                     flatten_with_paths(p) if path in experts}
+                out["expert_bytes"] = {t.numel() * t.element_size() for path, t in
+                                       flatten_with_paths(p) if path in experts}
+                out["expert_bytes"] |= {b // (cfg.n_layers // cfg.moe_every)
+                                        for b in out["expert_bytes"]}
+        del p, cache
+        return out
+
+    on_mesh = run(True)
+    plain = run(False)
+    same = torch.equal(on_mesh["tokens"], plain["tokens"])
+    mesh_ms, plain_ms = (1e3 * float(np.median(r["walls"][1:])) for r in (on_mesh, plain))
+    gathers = [r for r in on_mesh["records"] if r[0] == "all-gather"]
+    expert_gathers = [r for r in gathers if r[1] in on_mesh["expert_bytes"]]
+    moved = {path: pl for path, pl in on_mesh["placements"].items()
+             if pl != experts[path].placements}
+    ops_seen = sorted({r[0] for r in on_mesh["records"]})
+    print(f"[decode-mesh-moe] {kw['slots']} slots, prompts of {kw['prompt']} prefilled, "
+          f"{kw['steps']} greedy decode steps, int8 KV cache ({on_mesh['int8']}, "
+          f"{plain['int8']}): tokens identical on DTensors and plain tensors: {same}; int8 "
+          f"paged launches mesh {on_mesh['paged']}, plain {plain['paged']}; the counted step's "
+          f"collectives {len(on_mesh['records'])} ({ops_seen}), all-gathers of an expert "
+          f"weight's bytes {len(expert_gathers)}, expert leaves moved {len(moved)} of "
+          f"{len(experts)}", flush=True)
+    print(f"[decode-mesh-moe] step {mesh_ms:.2f} ms on DTensors against {plain_ms:.2f} ms on "
+          f"plain tensors ({mesh_ms / plain_ms:.2f}x; median of steps 1-{kw['steps'] - 1}, host "
+          f"clock); phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if not same:
+        fail(f"[decode-mesh-moe] tokens differ: mesh {on_mesh['tokens'].tolist()}, plain "
+             f"{plain['tokens'].tolist()}")
+    if not (on_mesh["int8"] and plain["int8"]) or on_mesh["paged"] != plain["paged"] \
+            or not plain["paged"]:
+        fail(f"[decode-mesh-moe] int8 paged launches mesh {on_mesh['paged']}, plain "
+             f"{plain['paged']}")
+    if expert_gathers or moved:
+        fail(f"[decode-mesh-moe] expert weights gathered {expert_gathers} or moved {moved}")
+    return dict(mesh_ms=mesh_ms, plain_ms=plain_ms, launches=on_mesh["paged"])
+
+
 def roofline_phase(trained: dict, trained_hybrid: dict, llama3: dict, smi: str) -> dict:
     """``[roofline]``: the least time of three measured steps on one H100
     from ``analytic_cost`` and ``Roofline`` on ``H100_SXM`` (one rank, no
@@ -2899,6 +3111,8 @@ def main() -> None:
     flash_g5 = flash_phase(dev, flush, heads=scout_heads, lengths=(256,), tag=SCOUT)
     paged_g16 = paged_phase(dev, flush, heads=moe_heads, tag=MOE)
     paged_g5 = paged_phase(dev, flush, heads=scout_heads, tag=SCOUT, pools=POOLS[:1])
+    paged8_g16 = paged_phase(dev, flush, heads=moe_heads, tag=f"{MOE} int8", int8=True,
+                             pools=POOLS[:1])
     embed_rows = embed_kernel_rows(dev, flush)
     width_rows = width_kernel_rows(dev, flush)
     bwd_rows = flash_bwd_phase(dev, flush)
@@ -2923,9 +3137,17 @@ def main() -> None:
     t_mesh = time.perf_counter()
     mesh_phase(dev)
     stamp("mesh")
+    decoded_mesh = decode_mesh_moe_phase(dev)
+    stamp("decode-mesh-moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_on_mesh = train_mesh_hybrid_run(dev)  # its plain side needs the group gone
+    stamp("train-mesh-hybrid (mesh side)")
     train_mesh_phase(dev)
-    mesh_s = time.perf_counter() - t_mesh
     stamp("train-mesh")
+    trained_mesh_hybrid = train_mesh_hybrid_phase(dev, hybrid_on_mesh)
+    mesh_s = time.perf_counter() - t_mesh
+    stamp("train-mesh-hybrid")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2966,7 +3188,8 @@ def main() -> None:
     t_roof = time.perf_counter()
     roofline_phase(trained, trained_hybrid, width_runs[LLAMA3], smi)
     dryrun_phase(*dryrun)
-    print(f"[time] [mesh], [train-mesh], [roofline] and the wait for [dryrun] took "
+    print(f"[time] [mesh], [decode-mesh-moe], [train-mesh], [train-mesh-hybrid], [roofline] "
+          f"and the wait for [dryrun] took "
           f"{mesh_s + time.perf_counter() - t_roof:.1f} s together", flush=True)
     stamp("roofline and dryrun")
     embed_runs = new_model_phases(dev, stamp)
@@ -3086,6 +3309,23 @@ def main() -> None:
         entry("sim_decode_telemetry", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
               f"DES routed Table-2 fleet, telemetry windows of {TELEMETRY['window']}",
               telemetry["launches"], des["kernel"], f"(G, P, I, S) = {des['kernel']['shape']}"))
+    kernels.append(
+        entry("paged_attention_int8_g16", paged_src, "src/repro/kernels/paged_attention.py:69",
+              f"decode {MOE} ({MESH_DECODE_MOE['layers']} of {get_config(MOE).n_layers} layers) "
+              f"kv_dtype=int8 on DTensors over a one-rank NCCL mesh, "
+              f"{MESH_DECODE_MOE['steps']} steps", decoded_mesh["launches"], paged8_g16["short"],
+              "8 slots x 512, H=64 K=4 D=128, int8 pages, f16 scales"))
+    kernels[-1].update(dequant_ms=paged8_g16["short"]["dequant_ms"],
+                       splits=paged8_g16["short"]["splits"])
+    # [train-mesh-hybrid]'s launches (the mesh side's; the plain side's are
+    # equal by its gate) beside each kernel's own path
+    mesh_hybrid_path = (f"train {HYBRID} ({MESH_TRAIN_HYBRID['layers']} Mamba-2 blocks) on "
+                        f"DTensors over a one-rank NCCL mesh, {MESH_TRAIN_HYBRID['steps']} steps")
+    for name, key in (("ssd_scan", "ssd_fwd"), ("ssd_scan_bwd", "ssd_bwd"),
+                      ("flash_attention_d80", "flash_fwd"), ("flash_attention_bwd_d80", "flash_bwd")):
+        k = next(k for k in kernels if k["name"] == name)
+        k["launches_by_path"] = {k["path"]: k["launches"],
+                                 mesh_hybrid_path: trained_mesh_hybrid["launches"][key]}
     print("[prior] the earlier design's ms at these shapes (PERF.md's table, not measured "
           "in this run): " + ", ".join(f"{k} {v}" for k, v in PRIOR_MS.items()))
     print(json.dumps({"kernels": kernels}))

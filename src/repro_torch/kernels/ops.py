@@ -31,7 +31,11 @@ cache, gathered whole for the paged kernel). Where the query heads are
 sharded and the KV heads replicated (KV heads that do not divide the mesh
 axis), each rank takes the KV heads its query heads read, and their
 gradient is a partial sum over the ranks. :func:`write_slot` writes a
-decode step's K/V into a cache shard, sequence-sharded ones included.
+decode step's K/V (or int8 K/V and their scales) into a cache shard,
+sequence-sharded ones included. The SSD scan takes DTensors too (the
+hybrid family's sharded path): :func:`on_head_shards` hands each rank its
+SSM heads, and B and C, which every head reads, whole, their gradient a
+partial sum over the ranks.
 """
 
 from __future__ import annotations
@@ -71,33 +75,56 @@ def _kv_heads_for(q: torch.Tensor, kv: tuple, mesh, mesh_dim: int) -> tuple:
     return tuple(t[:, :, sl] for t in kv)
 
 
+def on_head_shards(fn, args: tuple, dims: tuple, out_dims: tuple, *, whole_grads: tuple = ()):
+    """``fn(*args)`` on each rank's local shards → DTensors. ``dims[i]`` is
+    the (batch dim, head dim) of ``args[i]``, either None; ``out_dims`` the
+    same for each output (one output: a DTensor, several: a tuple). The
+    first argument sets the layout: the mesh dims that shard its batch dim
+    shard every batch dim, those that shard its head dim every head dim,
+    and its other shardings are gathered first. An argument without a head
+    dim is whole on every rank, and its gradient over the head shards is a
+    partial sum (each rank's heads add theirs), unless its index is in
+    ``whole_grads`` (it feeds only outputs without a head dim, which every
+    rank computes whole); an argument without a batch dim likewise has a
+    partial gradient over the batch shards."""
+    lead = args[0]
+    mesh = lead.device_mesh
+    role = [next((k for k, d in zip(("batch", "heads"), dims[0])
+                  if isinstance(p, Shard) and p.dim == d), None) for p in lead.placements]
+
+    def layout(i_dims, grad: bool = False, whole: bool = False) -> tuple:
+        out = []
+        for r in role:
+            dim = None if r is None else i_dims[r == "heads"]
+            if dim is not None:
+                out.append(Shard(dim))
+            elif grad and r is not None and not (whole and r == "heads"):
+                out.append(Partial())
+            else:
+                out.append(Replicate())
+        return tuple(out)
+
+    in_pl = tuple(layout(d) for d in dims)
+    grad_pl = tuple(layout(d, True, i in whole_grads) for i, d in enumerate(dims))
+    outs = [list(layout(d)) for d in out_dims]
+    return local_map(
+        fn, out_placements=outs[0] if len(outs) == 1 else tuple(outs),
+        in_placements=in_pl, in_grad_placements=grad_pl, device_mesh=mesh,
+    )(*(t.redistribute(mesh, p) for t, p in zip(args, in_pl)))
+
+
 def _on_shards(fn, q: DTensor, kv: tuple, extra: tuple = ()):
     """``fn(q, *kv, *extra)`` on each rank's local shards → a DTensor laid
-    out as ``q``. ``q`` and ``kv`` keep their batch and head sharding,
-    everything else is replicated first; ``extra`` (per-sequence vectors)
-    follow ``q``'s batch sharding."""
-    mesh = q.device_mesh
-    q_pl = tuple(p if isinstance(p, Shard) and p.dim in (_BATCH, _HEADS) else Replicate()
-                 for p in q.placements)
-    kv_pl, kv_grad, e_pl = [], [], []
-    for i, p in enumerate(q_pl):
-        if p == Shard(_BATCH):
-            kv_pl.append(p), kv_grad.append(p), e_pl.append(Shard(0))
-            continue
-        e_pl.append(Replicate())
-        if p == Shard(_HEADS) and all(t.placements[i] == p for t in kv):
-            kv_pl.append(p), kv_grad.append(p)
-        else:  # a head-sharded q reads a replicated KV's heads: partial gradients
-            kv_pl.append(Replicate())
-            kv_grad.append(Partial() if p == Shard(_HEADS) else Replicate())
-    head_dims = [i for i, p in enumerate(q_pl) if p == Shard(_HEADS)]
-    sliced = [i for i in head_dims if kv_pl[i] == Replicate()]
+    out as ``q`` (:func:`on_head_shards`). ``q`` and ``kv`` keep their
+    batch and head sharding, everything else is replicated first; ``extra``
+    (per-sequence vectors) follow ``q``'s batch sharding. Where the KV
+    heads are not sharded as the query heads are, they are whole on every
+    rank, which takes the ones its query heads read."""
+    head_dims = [i for i, p in enumerate(q.placements) if p == Shard(_HEADS)]
+    sliced = [i for i in head_dims if any(t.placements[i] != Shard(_HEADS) for t in kv)]
     if sliced and len(head_dims) > 1:
         raise ValueError(f"query heads sharded over mesh dims {head_dims}, KV heads replicated")
-    kv_pl, kv_grad, e_pl = tuple(kv_pl), tuple(kv_grad), tuple(e_pl)
-    q = q.redistribute(mesh, q_pl)
-    kv = tuple(t.redistribute(mesh, kv_pl) for t in kv)
-    extra = tuple(t.redistribute(mesh, e_pl) for t in extra)
+    mesh = q.device_mesh
 
     def local(q_l, *rest):
         kv_l, extra_l = rest[:len(kv)], rest[len(kv):]
@@ -105,12 +132,10 @@ def _on_shards(fn, q: DTensor, kv: tuple, extra: tuple = ()):
             kv_l = _kv_heads_for(q_l, kv_l, mesh, sliced[0])
         return fn(q_l, *kv_l, *extra_l)
 
-    return local_map(
-        local, out_placements=list(q_pl),  # a list: one output (a tuple would be one a value)
-        in_placements=(q_pl, *(kv_pl,) * len(kv), *(e_pl,) * len(extra)),
-        in_grad_placements=(q_pl, *(kv_grad,) * len(kv), *(e_pl,) * len(extra)),
-        device_mesh=mesh,
-    )(q, *kv, *extra)
+    kv_dims = (_BATCH, None if sliced else _HEADS)
+    return on_head_shards(local, (q, *kv, *extra),
+                          ((_BATCH, _HEADS), *(kv_dims,) * len(kv), *((0, None),) * len(extra)),
+                          ((_BATCH, _HEADS),))
 
 
 def flash_attention(
@@ -226,7 +251,12 @@ def ssd_scan(
     With grad mode on and an input that requires grad the scan goes through
     :class:`~repro_torch.kernels.ssd_scan.SSDScan` (``ssd_scan`` routes it
     there), whose backward is the backward kernel (its plain version on
-    the CPU)."""
+    the CPU). DTensors run on their local shards of heads (x, dt on dim 2,
+    a_neg on dim 0; the final state on dim 1), B and C whole."""
+    if isinstance(x, DTensor):
+        return on_head_shards(ssd_scan, (x, dt, a_neg, b_mat, c_mat),
+                              ((0, 2), (0, 2), (None, 0), (0, None), (0, None)),
+                              ((0, 2), (0, 1)))
     dtf = dt.float()
     xh = (x.float() * dtf[..., None]).transpose(1, 2).contiguous()
     log_a = (a_neg.float()[None, None, :] * dtf).transpose(1, 2).contiguous()

@@ -253,6 +253,13 @@ def ssd_scan(
         if return_states:
             raise ValueError("return_states is for the forward without grad")
         return SSDScan.apply(x, log_a, b_mat, c_mat)
+    if x.device.type == "meta":  # shapes only, as the dry run runs it
+        bsz, h, length, p = x.shape
+        out = (torch.empty_like(x), x.new_empty((bsz, h, p, b_mat.shape[-1]), dtype=torch.float32))
+        if return_states:
+            out += (x.new_empty((bsz, h, -(-length // KERNEL_CHUNK), p, b_mat.shape[-1]),
+                                dtype=torch.float32),)
+        return out
     if x.device.type == "cpu":
         return ssd_scan_plain(x, log_a, b_mat, c_mat, return_states=return_states)
     _check(x, log_a, b_mat, c_mat)
@@ -321,6 +328,8 @@ def ssd_scan_backward(
     (``bwd_variant`` "tc"; :func:`bwd_group` heads a CTA) or leave per head
     ("simt"), and the partials are summed in a fixed order by the library's
     last launch: no atomics, so two launches give the same bits."""
+    if x.device.type == "meta":  # shapes only, as the dry run runs it
+        return tuple(torch.empty_like(t) for t in (x, log_a, b_mat, c_mat))
     if x.device.type == "cpu":
         return ssd_scan_backward_plain(x, log_a, b_mat, c_mat, dy, ds_final, states)
     _check(x, log_a, b_mat, c_mat)

@@ -11,17 +11,28 @@ Adafactor above :data:`ADAFACTOR_THRESHOLD` parameters), the decode cache
 * the bytes each rank holds, for each of these and in total, from the
   local shapes, and whether they fit ``mem_util`` x ``hbm_bytes`` of an
   H100 (``fits``);
-* for the dense family, the collectives the cell's step issues (train
-  step, prefill or decode step, run on the meta DTensors under
+* for the dense, MoE and hybrid families (yi-6b, granite-3-8b,
+  granite-34b, gemma-2b, llama3-70b; qwen3-235b-a22b, llama4-scout,
+  llama4-maverick; zamba2-2.7b), the collectives the cell's step issues
+  (train step, prefill or decode step, run on the meta DTensors under
   :class:`~repro_torch.launch.comm_count.CommCounter`), and the roofline on
   :data:`~repro_torch.core.cost_model.H100_SXM` from the analytic cost and
   those collectives (causal attention counted as the triangle the flash
   kernel computes), with ``useful_flops_fraction``, the model FLOPs (6 N D
   or 2 N D) over that count; status ``"ok"``;
-* for the other families status ``"shape_only"``: the step does not run on
-  DTensors yet, so the collective term is null (not zero), and the
-  compute and memory terms stand alone;
+* for the xLSTM (``ssm``), vlm and audio families (xlstm-350m,
+  qwen2-vl-7b, musicgen-medium) status ``"shape_only"``: the step does not
+  run on DTensors yet (ROADMAP A20), so the collective term is null (not
+  zero), and the compute and memory terms stand alone;
 * status ``"skipped"`` where ``shape_applicable`` rules the cell out.
+
+``--remat {full,dots,none}`` (default full) and ``--kv-dtype {bf16,int8}``
+(default bf16) are passed to the model and to the analytic cost as the
+reference's dry run passes them; the xLSTM and hybrid families keep a bf16
+state whatever ``--kv-dtype`` says (the reference's ignore it too), and
+their cost counts the flag's bytes as the reference's does. Causal
+attention is counted as the triangle (the reference's ``--causal-mode``
+defaults to masked: the port's kernel has no masked mode).
 
 Records are JSON files under ``results/dryrun_torch/`` (``--out`` to put
 them elsewhere).
@@ -30,6 +41,7 @@ Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --multi-pod
     python -m repro_torch.launch.dryrun --arch llama3-70b --shape decode_32k train_4k
+    python -m repro_torch.launch.dryrun --arch qwen3-235b-a22b --shape decode_32k --kv-dtype int8
     python -m repro_torch.launch.dryrun --all      # every arch x shape x mesh
 """
 
@@ -54,7 +66,8 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.policy import build_policy, pure_dp_policy
 from repro_torch.launch.roofline import Roofline, model_flops_estimate
 from repro_torch.launch.train import SHARDED_FAMILIES
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import KV_DTYPES, STATE_FAMILIES, Model
+from repro_torch.models.remat import REMAT_MODES
 from repro_torch.training.train_loop import (
     TrainConfig,
     abstract_train_state,
@@ -72,9 +85,6 @@ RESULTS_DIR = os.path.join(
 #: (AdamW's state would not fit the mesh), as the reference's dry run does.
 ADAFACTOR_THRESHOLD = 4e10
 
-#: Every layer is rematerialized in training (the KV cache is the model's
-#: default bf16).
-REMAT = "full"
 #: Causal attention is counted as the triangle: the port's flash kernel
 #: never visits the blocks above the diagonal (no masked mode).
 CAUSAL_MODE = "triangle"
@@ -108,10 +118,12 @@ def run_cell(
     *,
     multi_pod: bool = False,
     pure_dp: bool = False,
+    remat: str = "full",
+    kv_dtype: str = "bf16",
     out_dir: str = RESULTS_DIR,
 ) -> dict:
-    """Place and (dense family) step one cell; returns its record, also
-    saved as JSON under ``out_dir``."""
+    """Place and (dense, MoE and hybrid families) step one cell; returns its
+    record, also saved as JSON under ``out_dir``."""
     cfg = get_config(arch)
     cell = SHAPES_BY_NAME[shape]
     record: dict = {"arch": arch, "shape": shape, "mesh": MESHES[multi_pod], "status": "error"}
@@ -129,8 +141,10 @@ def run_cell(
     chips = mesh.size()
     policy = (pure_dp_policy if pure_dp else build_policy)(cfg, cell, mesh)
     rules = policy.rules
-    model = Model(cfg, remat=REMAT)
+    model = Model(cfg, remat=remat,
+                  kv_dtype="bf16" if cfg.family in STATE_FAMILIES else kv_dtype)
     record["pure_dp"] = pure_dp
+    record["variant"] = {"causal_mode": CAUSAL_MODE, "remat": remat, "kv_dtype": kv_dtype}
 
     params = distribute_tree(model.abstract(), tree_placements(model.axes(), mesh, rules))
     batch = distribute_tree(model.input_specs(cell),
@@ -159,7 +173,7 @@ def run_cell(
     t_place = time.perf_counter()
 
     colls = None
-    if cfg.family in SHARDED_FAMILIES:  # the others are placed shape-only
+    if cfg.family in SHARDED_FAMILIES:  # the others are placed shape-only (A20)
         with use_rules(rules), CommCounter() as counter:
             if cell.kind == "train":
                 step_fn, _ = make_train_step(model, tcfg)
@@ -176,7 +190,7 @@ def run_cell(
     acost = cell_cost(
         cfg, cell, model.param_count(),
         moe_cf=1.25 if cell.kind == "train" else 2.0,
-        optimizer=opt_name, remat=REMAT, causal_mode=CAUSAL_MODE,
+        optimizer=opt_name, remat=remat, causal_mode=CAUSAL_MODE, kv_dtype=kv_dtype,
     )
     roof = Roofline(
         flops_total=acost.flops_total,
@@ -221,12 +235,18 @@ def _save(record: dict, out_dir: str) -> None:
 
 
 def summary(rec: dict) -> str:
-    """One line for a record: per-rank bytes, fits and the three terms."""
+    """One line for a record: per-rank bytes, fits and the three terms; a
+    ``shape_only`` record's collective term is null (its family's step
+    does not run on DTensors yet, ROADMAP A20)."""
     head = f"[{rec['status']}] {rec['arch']} x {rec['shape']} x {rec['mesh']}"
     if rec["status"] not in ("ok", "shape_only"):
         return head
+    variant = rec["variant"]
+    if (variant["remat"], variant["kv_dtype"]) != ("full", "bf16"):
+        head += f" (remat {variant['remat']}, kv {variant['kv_dtype']})"
     r, gb = rec["roofline"], rec["bytes_per_rank"]["total"] / 1e9
-    coll = "null" if r["collective_s"] is None else f"{r['collective_s'] * 1e3:.3f} ms"
+    coll = ("null (step not run: A20)" if r["collective_s"] is None
+            else f"{r['collective_s'] * 1e3:.3f} ms")
     return (f"{head}: {gb:.3f} GB a rank (fits {rec['fits']}), compute "
             f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
             f"collective {coll}, dominant {r['dominant']}, useful_flops_fraction "
@@ -243,6 +263,8 @@ def main() -> None:
                     help="every config x shape, on both meshes unless --multi-pod is given")
     ap.add_argument("--pure-dp", action="store_true",
                     help="fold the model axis into data parallelism")
+    ap.add_argument("--remat", default="full", choices=REMAT_MODES)
+    ap.add_argument("--kv-dtype", default="bf16", choices=KV_DTYPES)
     ap.add_argument("--out", default=RESULTS_DIR, help="directory of the JSON records")
     args = ap.parse_args()
 
@@ -258,7 +280,7 @@ def main() -> None:
     for arch, shape, multi_pod in cells:
         try:
             rec = run_cell(arch, shape, multi_pod=multi_pod, pure_dp=args.pure_dp,
-                           out_dir=args.out)
+                           remat=args.remat, kv_dtype=args.kv_dtype, out_dir=args.out)
             print(summary(rec), flush=True)
             print(json.dumps({k: rec.get(k) for k in ("arch", "shape", "mesh", "status",
                                                       "bytes_per_rank", "fits", "roofline")}),

@@ -17,9 +17,13 @@ builds the largest ``(data, model)`` mesh over the world, ``model_parallel``
 wide on the model axis (``--model-parallel``); the parameters and the
 optimizer state are placed by the sharding policy over ``Model.axes()``
 and ``opt_state_axes``, the batch is sharded over the data axis, and a
-resume restores the checkpoint onto that mesh (``placements=``). Only the
-dense family runs sharded (ROADMAP A20 queues the others). Without a
-process group, training runs on one device as before.
+resume restores the checkpoint onto that mesh (``placements=``). The
+dense, MoE and hybrid families run sharded; the xLSTM (``ssm``), vlm and
+audio families are refused (ROADMAP A20 queues them). Without a process
+group, training runs on one device as before.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch zamba2-2.7b \
+        --model-parallel 2 --device cpu
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ from repro_torch.training import (
 )
 
 #: Families whose training step runs on DTensors.
-SHARDED_FAMILIES = ("dense",)
+SHARDED_FAMILIES = ("dense", "moe", "hybrid")
 
 
 def _scalar(t) -> float:
@@ -68,7 +72,7 @@ def train(
     microbatches: int = 1,
     remat: str = "full",
     ckpt_dir: str | None = None,
-    ckpt_every: int = 25,
+    ckpt_every: int | None = 25,
     model_parallel: int = 1,
     simulate_failure_at: int = -1,
     log_every: int = 10,
@@ -78,7 +82,8 @@ def train(
     ``reduced=False``; or a config itself, e.g. one cut in depth, taken as
     it is) for ``steps`` steps, resuming from the latest checkpoint under
     ``ckpt_dir`` if there is one; on the world's mesh when a process group
-    is initialised. Returns the final loss, this run's losses, the step it
+    is initialised. ``ckpt_every=None`` saves no checkpoint (a run timed for
+    its steps alone). Returns the final loss, this run's losses, the step it
     started at, the straggler steps and each step's seconds."""
     dev = resolve_device(device)
     cfg = arch
@@ -152,7 +157,7 @@ def train(
                         f"lr {_scalar(metrics['lr']):.2e} "
                         f"gnorm {_scalar(metrics['grad_norm']):.2f}"
                     )
-                if (i + 1) % ckpt_every == 0 or i + 1 == steps:
+                if ckpt_every and ((i + 1) % ckpt_every == 0 or i + 1 == steps):
                     ck.save(i + 1, {"p": params, "o": opt_state}, {"loss": loss})
     finally:
         # An injected failure still lets the save in flight land, so the

@@ -13,6 +13,14 @@ Decode state, as the reference's prefill returns it:
 ``(groups, B, S, K, Dh)``, conv ``(groups, sub, B, K-1, d_inner + 2N)`` and
 the SSD state ``(groups, sub, B, H, P, N)`` f32. Decode updates it in
 place, each slot at its own position (``batch["index"]`` is per slot).
+
+On DTensors (the sharded path) the embedding and the head are
+vocab-parallel as the transformer's, the shared block's heads and MLP shard
+as a dense layer's, a Mamba-2 block's SSM heads shard (:mod:`ssm`), and
+every sublayer's output is laid out as the residual stream
+(:func:`~repro_torch.models.layers.residual`, one all-reduce of its
+partial sums). The decode state keeps the SSD state on its heads' shards
+and the conv state whole.
 """
 
 from __future__ import annotations
@@ -23,11 +31,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain, replicate_like
+from repro_torch.kernels.ops import write_slot
 from repro_torch.models import heads as heads_lib
 from repro_torch.models.layers import (
     apply_rope,
     decode_attention,
+    embed_lookup,
     flash_attention,
+    residual,
     rms_norm,
     rope_angles,
 )
@@ -125,21 +137,24 @@ def _shared_attn_apply(x, base: dict, lora: dict, cfg: ArchConfig, cos, sin, *,
     v = _lora_proj(xn, base["w_v"], lora["a_v"], lora["b_v"])
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if cache is None:
+        q = constrain(q, ("batch", None, "heads", None))
+        k = constrain(k, ("batch", None, "kv_heads", None))
         o = flash_attention(q, k, v, causal=True)
         new_cache = (k, v)
     else:
         k_cache, v_cache = cache
-        k_cache[rows, write] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, write] = v[:, 0].to(v_cache.dtype)
+        write_slot(k_cache, k[:, 0].to(k_cache.dtype), rows, write)
+        write_slot(v_cache, v[:, 0].to(v_cache.dtype), rows, write)
         o = decode_attention(q, k_cache, v_cache, lengths)
         new_cache = cache
     bsz, length = o.shape[:2]
     w_o = base["w_o"]
-    x = x + o.reshape(bsz, length, -1) @ w_o.reshape(-1, w_o.shape[-1])
+    x = residual(x, o.reshape(bsz, length, -1) @ w_o.reshape(-1, w_o.shape[-1]))
 
     xn = rms_norm(x, base["mlp_norm"], cfg.norm_eps)
     up = _lora_proj(xn, base["w_up"], lora["a_up"], lora["b_up"])
-    x = x + F.gelu(up, approximate="tanh") @ base["w_down"]
+    up = constrain(up, ("batch", None, "ffn"))
+    x = residual(x, F.gelu(up, approximate="tanh") @ base["w_down"])
     return x, new_cache
 
 
@@ -147,20 +162,31 @@ def _mamba_kw(cfg: ArchConfig) -> dict:
     return dict(n_heads=cfg.n_ssm_heads, head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state)
 
 
-def _group_full(x: torch.Tensor, g: int, params: dict, cfg: ArchConfig, cos, sin):
+def _group_full(x: torch.Tensor, g: int, params: dict, cfg: ArchConfig, cos, sin,
+                keep_state: bool):
     """Group ``g`` (its Mamba blocks, then its shared-attention invocation)
-    over the whole sequence → (x, conv states, SSD states, k, v)."""
+    over the whole sequence → (x, (conv states, SSD states, k, v) or None
+    without ``keep_state``)."""
     kw = _mamba_kw(cfg)
     g_conv, g_ssd = [], []
     for s in range(cfg.attn_every):
         p = _index(params["mamba"], g, s)
-        out, st = mamba2_block(rms_norm(x, p["in_norm"], cfg.norm_eps), p, **kw)
-        x = x + out
-        g_conv.append(st["conv"])
-        g_ssd.append(st["ssd"])
+        out, st = mamba2_block(rms_norm(x, p["in_norm"], cfg.norm_eps), p, **kw,
+                               keep_state=keep_state)
+        x = residual(x, out)
+        if keep_state:
+            g_conv.append(st["conv"])
+            g_ssd.append(st["ssd"])
     base = _index(params["shared"], g % cfg.n_shared_attn_blocks)
     x, (k, v) = _shared_attn_apply(x, base, _index(params["lora"], g), cfg, cos, sin)
-    return x, torch.stack(g_conv), torch.stack(g_ssd), k, v
+    if not keep_state:
+        return x, None
+    return x, (torch.stack(g_conv), torch.stack(g_ssd), k, v)
+
+
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    x = embed_lookup(tokens.long(), params["embed"])
+    return constrain(x, ("batch", None, "embed"))
 
 
 def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor, remat: str = "none",
@@ -169,14 +195,14 @@ def _run_full(params: dict, cfg: ArchConfig, tokens: torch.Tensor, remat: str = 
     runs under the rematerialization mode ``remat`` (the training pass's),
     as the reference's ``_group_scan`` checkpoints a group; the state is
     built only with ``keep_state`` (prefill), else it is None."""
-    x = params["embed"][tokens.long()]
+    x = _embed(params, tokens)
     bsz, length = tokens.shape
-    pos = torch.arange(length, device=x.device).expand(bsz, length)
+    pos = replicate_like(torch.arange(length, device=x.device).expand(bsz, length), x)
     cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
     groups = []
     for g in range(n_groups(cfg)):
-        x, *leaves = remat_layer(lambda h, g=g: _group_full(h, g, params, cfg, cos, sin),
-                                 remat)(x)
+        x, leaves = remat_layer(
+            lambda h, g=g: _group_full(h, g, params, cfg, cos, sin, keep_state), remat)(x)
         if keep_state:
             groups.append(leaves)
     if not keep_state:
@@ -223,9 +249,9 @@ def decode_step(params: dict, cfg: ArchConfig, states: Any, batch: dict) -> tupl
     """One decode iteration over a slot batch. ``batch["index"]`` is the
     write position, a scalar or one per slot; ``states`` are updated in
     place and returned."""
-    x = params["embed"][batch["tokens"].long()]
+    x = _embed(params, batch["tokens"])
     bsz = x.shape[0]
-    index = torch.as_tensor(batch["index"], device=x.device).long().expand(bsz)
+    index = replicate_like(torch.as_tensor(batch["index"], device=x.device), x).long().expand(bsz)
     cos, sin = rope_angles(index[:, None], cfg.head_dim, cfg.rope_theta)
     k_all, v_all = states["attn"]
     conv_all, ssd_all = states["mamba"]["conv"], states["mamba"]["ssd"]
@@ -239,7 +265,7 @@ def decode_step(params: dict, cfg: ArchConfig, states: Any, batch: dict) -> tupl
             p = _index(params["mamba"], g, s)
             st = {"conv": conv_all[g, s], "ssd": ssd_all[g, s]}
             out, new = mamba2_decode_step(rms_norm(x, p["in_norm"], cfg.norm_eps), p, st, **kw)
-            x = x + out
+            x = residual(x, out)
             conv_all[g, s].copy_(new["conv"])
             ssd_all[g, s].copy_(new["ssd"])
         base = _index(params["shared"], g % cfg.n_shared_attn_blocks)

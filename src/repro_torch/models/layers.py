@@ -73,6 +73,14 @@ def mlp(x: torch.Tensor, params: dict, activation: str) -> torch.Tensor:
     return hidden @ params["w_down"]
 
 
+def residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``x + out``, a sublayer's output laid out as the residual stream
+    first: on DTensors that is the all-reduce of its partial sums over the
+    model axis (left alone, DTensor would carry the whole residual stream
+    as a partial sum and reduce it piecemeal at every use)."""
+    return x + constrain(out, ("batch", None, "embed"))
+
+
 def rope_angles(
     positions: torch.Tensor, head_dim: int, theta: float
 ) -> tuple[torch.Tensor, torch.Tensor]:

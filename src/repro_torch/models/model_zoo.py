@@ -40,7 +40,7 @@ KV_DTYPES = ("bf16", "int8")
 #: Families whose decode state is a tree of recurrent states (and, for the
 #: hybrid, a bf16 KV cache): their module and parameter declarations. The
 #: rest run ``transformer``.
-_STATE_FAMILIES = {"hybrid": (hybrid, hybrid.hybrid_defs),
+STATE_FAMILIES = {"hybrid": (hybrid, hybrid.hybrid_defs),
                    "ssm": (xlstm_model, xlstm_model.xlstm_defs)}
 
 
@@ -66,10 +66,10 @@ class Model:
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(f"kv_dtype {self.kv_dtype!r} not in {KV_DTYPES}")
         family = self.cfg.family
-        if family in _STATE_FAMILIES:
+        if family in STATE_FAMILIES:
             if self.kv_dtype != "bf16":
                 raise NotImplementedError(f"the {family} family keeps no int8 KV cache")
-            self._mod, defs = _STATE_FAMILIES[family]
+            self._mod, defs = STATE_FAMILIES[family]
             self._kw, self.defs = {}, defs(self.cfg)
         else:
             self._mod, self._kw = transformer, {"kv_dtype": self.kv_dtype}

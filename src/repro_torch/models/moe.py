@@ -27,11 +27,27 @@ capacity from its own length.
 Used by llama4-scout (16 experts, top-1, one shared), llama4-maverick (128
 experts, top-1, one shared, every other layer) and qwen3-235b (128 experts,
 top-8).
+
+On DTensors (the sharded path) the layer runs on each rank's shards
+through ``local_map``: the tokens whole over the model axis (their batch
+shards kept), the router whole, the expert weights on the shards they were
+placed on (``experts``, the reference's constraint on ``expert_in`` and
+``eo``; or ``ffn`` where the experts do not divide the axis) and the shared
+expert on its ``ffn`` shards. Each rank routes its tokens over every
+expert, as one process does, takes its own experts' columns of the combine
+tensor, runs their FFN and combines: its output is a partial sum over the
+ranks, which the caller's residual reduces in one all-reduce, and no
+expert weight moves. The load-balancing terms come from the first rank of
+the model axis (the others add zeros), so their gradient is counted once.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.models.layers import mlp
 from repro_torch.models.params import ParamDef
@@ -98,25 +114,97 @@ def _route(xg: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int):
 
 
 def _grouped(xg: torch.Tensor, params: dict, *, n_exp: int, top_k: int, activation: str,
-             capacity_factor: float):
+             capacity_factor: float, first: int):
     """One set of equal groups xg (G, g, d) → (out (G, g, d), per-group
     balance terms (G,)). The experts' FFN is the dense MLP batched over
-    the expert axis: (E, G*C, d) against (E, d, f) weights."""
+    the expert axis: (E, G*C, d) against (E, d, f) weights. Given the
+    weights of ``E_l`` < ``n_exp`` experts (one rank's shard), those are
+    experts ``first`` to ``first + E_l - 1``, and only their columns of the
+    combine tensor are dispatched and combined."""
     n_groups, g, d = xg.shape
     capacity = max(top_k, min(g, int(g * top_k * capacity_factor / n_exp)))
     combine, balance = _route(xg, params["router"], top_k, capacity)
+    n_loc = params["w_up"].shape[0]
+    if n_loc != n_exp:
+        combine = combine[:, :, first:first + n_loc]
 
-    flat = combine.view(n_groups, g, n_exp * capacity)
+    flat = combine.reshape(n_groups, g, n_loc * capacity)
     dispatch = (flat > 0).to(xg.dtype)
     expert_in = torch.bmm(dispatch.transpose(1, 2), xg)  # (G, E*C, d)
-    per_expert = expert_in.view(n_groups, n_exp, capacity, d).transpose(0, 1)
-    eo = mlp(per_expert.reshape(n_exp, n_groups * capacity, d), params, activation)
-    eo = eo.view(n_exp, n_groups, capacity, d).transpose(0, 1).reshape(n_groups, -1, d)
+    per_expert = expert_in.view(n_groups, n_loc, capacity, d).transpose(0, 1)
+    eo = mlp(per_expert.reshape(n_loc, n_groups * capacity, d), params, activation)
+    eo = eo.view(n_loc, n_groups, capacity, d).transpose(0, 1).reshape(n_groups, -1, d)
     out = torch.bmm(flat.to(xg.dtype), eo)  # (G, g, d)
 
     if "shared" in params:
         out = out + mlp(xg, params["shared"], activation)
     return out, balance
+
+
+def _moe(x: torch.Tensor, params: dict, *, group: int, first: int = 0, **kw):
+    """The layer on plain tensors, tokens in groups of ``group`` and a
+    ragged last one → (out (B, L, d) in x's dtype, balance terms a group
+    (G,) f32)."""
+    b, l, d = x.shape
+    tokens = x.reshape(-1, d)
+    n_tok = tokens.shape[0]
+    n_full = n_tok // group * group
+    parts = [tokens[:n_full].view(-1, group, d)]
+    if n_full < n_tok:  # the ragged last group
+        parts.append(tokens[n_full:][None])
+    outs, balances = zip(*(_grouped(p, params, first=first, **kw) for p in parts))
+    out = torch.cat([o.reshape(-1, d) for o in outs]).view(b, l, d)
+    return out.to(x.dtype), torch.cat(balances)
+
+
+def _moe_on_shards(x: DTensor, params: dict, *, group: int, **kw):
+    """:func:`_moe` on each rank's shards (the module docstring) → (out,
+    balance terms), each a partial sum over the mesh dims the weights
+    shard and batch-sharded as ``x``."""
+    from repro_torch.training.tree import leaves, unflatten  # training imports the models
+
+    mesh = x.device_mesh
+    weights = leaves(params)
+    router = [w is params["router"] for w in weights]
+    ep = sorted({i for w, r in zip(weights, router) if not r
+                 for i, p in enumerate(w.placements) if isinstance(p, Shard)})
+    for w, r in zip(weights, router):
+        if not r and any(not isinstance(w.placements[i], Shard) for i in ep):
+            raise ValueError(f"an MoE weight {tuple(w.shape)} is not sharded on every mesh dim "
+                             f"another is ({w.placements}): its output would not be a partial sum")
+    batch = [i for i, p in enumerate(x.placements) if p == Shard(0) and i not in ep]
+
+    def layout(on_ep, on_batch) -> tuple:
+        """Placements: ``on_ep`` (one, or one a mesh dim) on the weights'
+        dims, ``on_batch`` on x's batch dims, replicated elsewhere."""
+        return tuple((on_ep[i] if isinstance(on_ep, tuple) else on_ep) if i in ep
+                     else on_batch if i in batch else Replicate() for i in range(mesh.ndim))
+
+    x_pl, out_pl = layout(Replicate(), Shard(0)), layout(Partial(), Shard(0))
+    w_in = [layout(Replicate() if r else tuple(w.placements), Replicate())
+            for w, r in zip(weights, router)]
+    w_grad = [layout(Partial() if r else tuple(w.placements), Partial())
+              for w, r in zip(weights, router)]
+    w_up = params["w_up"]
+    expert_dims = [i for i in ep if w_up.placements[i] == Shard(0)]
+    n_batch = math.prod(mesh.size(i) for i in batch)
+    if n_batch > 1 and (x.shape[0] // n_batch * x.shape[1]) % group:
+        raise ValueError(f"groups of {group} tokens would straddle the batch shards of "
+                         f"{tuple(x.shape)} over {n_batch} ranks")
+
+    def local(x_l, *w_l):
+        tree = unflatten(params, w_l)
+        rank = 0
+        for i in expert_dims:  # DTensor nests the shards of one dim in mesh order
+            rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+        out, balances = _moe(x_l, tree, group=group, first=rank * tree["w_up"].shape[0], **kw)
+        lead = all(mesh.get_local_rank(i) == 0 for i in ep)
+        return out, balances if lead else torch.zeros_like(balances)
+
+    return local_map(
+        local, out_placements=(list(out_pl), list(out_pl)),
+        in_placements=(x_pl, *w_in), in_grad_placements=(out_pl, *w_grad), device_mesh=mesh,
+    )(x.redistribute(mesh, x_pl), *(w.redistribute(mesh, p) for w, p in zip(weights, w_in)))
 
 
 def moe_layer(
@@ -130,18 +218,12 @@ def moe_layer(
     capacity_factor: float = TRAIN_CAPACITY_FACTOR,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, L, d_model) in x's dtype, the load-balancing loss
-    E·mean over groups of Σ_e f_e·p_e, f32)."""
-    b, l, d = x.shape
-    tokens = x.reshape(-1, d)
-    n_tok = tokens.shape[0]
-    g = min(group_size, n_tok)
-    n_full = n_tok // g * g
-    parts = [tokens[:n_full].view(-1, g, d)]
-    if n_full < n_tok:  # the ragged last group
-        parts.append(tokens[n_full:][None])
+    E·mean over groups of Σ_e f_e·p_e, f32). DTensors run on their shards
+    (the module docstring): the output is then a partial sum over the
+    model axis."""
+    b, l, _ = x.shape
     kw = dict(n_exp=n_experts, top_k=top_k, activation=activation,
-              capacity_factor=capacity_factor)
-    outs, balances = zip(*(_grouped(p, params, **kw) for p in parts))
-    out = torch.cat([o.reshape(-1, d) for o in outs]).view(b, l, d)
-    aux = n_experts * torch.cat(balances).mean()
-    return out.to(x.dtype), aux.float()
+              capacity_factor=capacity_factor, group=min(group_size, b * l))
+    out, balances = (_moe_on_shards if isinstance(x, DTensor) else _moe)(x, params, **kw)
+    aux = n_experts * balances.mean()
+    return out, aux.float()

@@ -7,6 +7,16 @@ one-token recurrence :func:`ssd_step` in plain PyTorch, which the reference
 computes as ``ssd_chunked`` with ``chunk=1`` and an initial state (equal:
 the reference's ``tests/test_layers.py::test_ssd_chunked_equals_stepwise``).
 
+On DTensors (the sharded path) the block's heads shard over the model
+axis: ``w_z``, ``w_x``, ``w_dt``, ``conv_x`` and the per-head vectors on
+``ssm_heads``, ``w_b``, ``w_c``, ``conv_b``, ``conv_c`` whole. The scan,
+the decode recurrence and the causal convs run on each rank's local shards
+(:func:`repro_torch.kernels.ops.on_head_shards`); the convs take the x
+channels on their shard and the B/C channels whole, and the conv state
+they return is whole, as the decode state keeps it. The gated norm's mean
+over ``d_inner`` is a partial sum over the ranks, reduced once, and the
+output projection's a partial sum that the caller's residual reduces.
+
 Dimensions: B batch, L seq, H ssm heads, P head dim, G groups, N state.
 """
 
@@ -18,8 +28,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import constrain, replicate_like
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamDef
+
+#: The logical axes of a block's (B, L, d_inner) or (B, L, H) activations.
+_INNER = ("batch", None, "ssm_heads")
 
 # ---------------------------------------------------------------------------
 # Core SSD scan
@@ -34,7 +50,12 @@ def ssd_step(
     c_t: torch.Tensor,  # (B, G, N)
     state: torch.Tensor,  # (B, H, P, N)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Single-token recurrence: S ← a S + dt B x;  y = C·S (f32 state)."""
+    """Single-token recurrence: S ← a S + dt B x;  y = C·S (f32 state).
+    DTensors run on their local shards of heads."""
+    if isinstance(x_t, DTensor):
+        return ops.on_head_shards(
+            ssd_step, (x_t, dt_t, a_neg, b_t, c_t, state),
+            ((0, 1), (0, 1), (None, 0), (0, None), (0, None), (0, 1)), ((0, 1), (0, 1)))
     h = x_t.shape[1]
 
     def per_head(t: torch.Tensor) -> torch.Tensor:  # (B, G, N) → (B, H or 1, N)
@@ -99,31 +120,73 @@ def _causal_conv(
 def _ssm_gated_norm(
     y: torch.Tensor, z: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
-    """RMSNorm(y * silu(z)) — the Mamba-2 gated output norm."""
+    """RMSNorm(y * silu(z)) — the Mamba-2 gated output norm. On DTensors
+    the mean over the sharded ``d_inner`` is one all-reduce of (B, L, 1),
+    and so is its gradient's (left alone, DTensor reduce-scatters the
+    gradient onto the batch and gathers the activations back)."""
     hf = (y * F.silu(z)).float()
-    var = hf.square().mean(dim=-1, keepdim=True)
+    var = constrain(hf.square().mean(dim=-1, keepdim=True), ("batch", None, None))
     return (hf * torch.rsqrt(var + eps) * (1.0 + w)).to(y.dtype)
 
 
-def _projections(x: torch.Tensor, params: dict, state: Optional[dict], d_state: int):
+def _conv_silu(xs, bproj, cproj, conv_x, conv_b, conv_c, cache=None, keep_state=True):
+    """The x, B and C channels' causal convs as one depthwise conv over
+    their concatenated channels (the conv state's layout; the reference's
+    three convs channel by channel), then SiLU → (xs, B, C, the last K-1
+    inputs of every channel, or None without ``keep_state``). On DTensors
+    each rank convolves its x channels and the B/C channels whole, and the
+    state comes back whole (a gather of the x channels' K-1 inputs, which
+    ``keep_state=False`` spares)."""
+    if isinstance(xs, DTensor):
+        return _conv_silu_on_shards(xs, bproj, cproj, conv_x, conv_b, conv_c, cache,
+                                    keep_state)
+    xbc = torch.cat([xs, bproj, cproj], dim=-1)
+    w = torch.cat([conv_x, conv_b, conv_c], dim=-1)
+    xbc, tail = _causal_conv(xbc, w, cache)
+    n = bproj.shape[-1]
+    return (*F.silu(xbc).split([xbc.shape[-1] - 2 * n, n, n], dim=-1),
+            tail if keep_state else None)
+
+
+def _conv_silu_on_shards(xs, bproj, cproj, conv_x, conv_b, conv_c, cache, keep_state):
+    di = xs.shape[-1]
+
+    def local(xs, bproj, cproj, conv_x, conv_b, conv_c, *cache_parts):
+        cache = torch.cat(cache_parts, dim=-1) if cache_parts else None
+        *out, tail = _conv_silu(xs, bproj, cproj, conv_x, conv_b, conv_c, cache)
+        return (*out, tail[..., :xs.shape[-1]], tail[..., xs.shape[-1]:])
+
+    args = (xs, bproj, cproj, conv_x, conv_b, conv_c)
+    dims = ((0, 2), (0, None), (0, None), (None, 1), (None, None), (None, None))
+    if cache is not None:  # the whole state: each rank takes its x channels
+        args += (cache[..., :di], cache[..., di:])
+        dims += ((0, 2), (0, None))
+    xs, bproj, cproj, tail_x, tail_bc = ops.on_head_shards(
+        local, args, dims, ((0, 2), (0, None), (0, None), (0, 2), (0, None)),
+        whole_grads=(1, 2, 4, 5, 7))
+    if not keep_state:
+        return xs, bproj, cproj, None
+    tail = torch.cat([tail_x.redistribute(tail_x.device_mesh, tail_bc.placements), tail_bc],
+                     dim=-1)
+    return xs, bproj, cproj, tail
+
+
+def _projections(x: torch.Tensor, params: dict, state: Optional[dict], keep_state: bool = True):
     """The block's input projections and causal convs → (z, xs, B, C, dt,
-    new conv state). The x, B and C convs run as one depthwise conv over
-    their concatenated channels (the conv state's layout), which is the
-    reference's three convs channel by channel."""
-    z = x @ params["w_z"]
-    xbc = torch.cat([x @ params["w_x"], x @ params["w_b"], x @ params["w_c"]], dim=-1)
-    dt = x @ params["w_dt"]
-    w = torch.cat([params["conv_x"], params["conv_b"], params["conv_c"]], dim=-1)
-    xbc, new_conv = _causal_conv(xbc, w, None if state is None else state["conv"])
-    xs, bproj, cproj = F.silu(xbc).split([xbc.shape[-1] - 2 * d_state, d_state, d_state], dim=-1)
+    new conv state or None)."""
+    z = constrain(x @ params["w_z"], _INNER)
+    dt = constrain(x @ params["w_dt"], _INNER)
+    xs, bproj, cproj, new_conv = _conv_silu(
+        x @ params["w_x"], x @ params["w_b"], x @ params["w_c"], params["conv_x"],
+        params["conv_b"], params["conv_c"], None if state is None else state["conv"], keep_state)
     return z, xs, bproj, cproj, dt, new_conv
 
 
 def _output(y, xh, z, params):
     bsz, length = y.shape[:2]
     y = y + xh * params["d_skip"][None, None, :, None].to(y.dtype)
-    y = _ssm_gated_norm(y.reshape(bsz, length, -1), z, params["norm"])
-    return y @ params["w_out"]
+    y = constrain(y.reshape(bsz, length, -1), _INNER)
+    return constrain(_ssm_gated_norm(y, z, params["norm"]), _INNER) @ params["w_out"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,7 +199,7 @@ def _zero(device: torch.device) -> torch.Tensor:
 def _dt_decay(dt: torch.Tensor, params: dict):
     """softplus(dt + dt_bias) in f32 (``jax.nn.softplus`` = logaddexp(x, 0))
     and the negative decay ``-exp(a_log)``."""
-    dtp = torch.logaddexp(dt.float() + params["dt_bias"], _zero(dt.device))
+    dtp = torch.logaddexp(dt.float() + params["dt_bias"], replicate_like(_zero(dt.device), dt))
     return dtp, -torch.exp(params["a_log"])
 
 
@@ -147,15 +210,17 @@ def mamba2_block(
     n_heads: int,
     head_dim: int,
     d_state: int,
-) -> tuple[torch.Tensor, dict]:
+    keep_state: bool = True,
+) -> tuple[torch.Tensor, Optional[dict]]:
     """Full Mamba-2 mixer over a prompt (no carried state), the scan through
-    ``ops.ssd_scan``. Returns (out, {"conv": (B, K-1, C), "ssd": (B, H, P, N)})."""
-    z, xs, bproj, cproj, dt, conv = _projections(x, params, None, d_state)
+    ``ops.ssd_scan``. Returns (out, {"conv": (B, K-1, C), "ssd": (B, H, P,
+    N)}), or (out, None) without ``keep_state`` (training)."""
+    z, xs, bproj, cproj, dt, conv = _projections(x, params, None, keep_state)
     bsz, length, _ = x.shape
     xh = xs.reshape(bsz, length, n_heads, head_dim)
     dtp, a_neg = _dt_decay(dt, params)
     y, s_final = ops.ssd_scan(xh, dtp, a_neg, bproj, cproj)
-    return _output(y, xh, z, params), {"conv": conv, "ssd": s_final}
+    return _output(y, xh, z, params), {"conv": conv, "ssd": s_final} if keep_state else None
 
 
 def mamba2_decode_step(
@@ -168,7 +233,7 @@ def mamba2_decode_step(
     d_state: int,
 ) -> tuple[torch.Tensor, dict]:
     """O(1) per-token recurrence for serving decode → (out, new state)."""
-    z, xs, bproj, cproj, dt, conv = _projections(x_t, params, state, d_state)
+    z, xs, bproj, cproj, dt, conv = _projections(x_t, params, state)
     bsz = x_t.shape[0]
     xh = xs.reshape(bsz, 1, n_heads, head_dim)
     dtp, a_neg = _dt_decay(dt, params)

@@ -59,6 +59,7 @@ from repro_torch.models.layers import (
     flash_attention,
     mlp,
     mrope_angles,
+    residual,
     rms_norm,
     rope_angles,
 )
@@ -237,14 +238,6 @@ def _out_proj(o: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
     return o.reshape(b, l, -1) @ w_o.reshape(-1, w_o.shape[-1])
 
 
-def _residual(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``x + out``, a sublayer's output laid out as the residual stream
-    first: on DTensors that is the all-reduce of its partial sums over the
-    model axis (left alone, DTensor would carry the whole residual stream
-    as a partial sum and reduce it piecemeal at every use)."""
-    return x + constrain(out, ("batch", None, "embed"))
-
-
 def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(position, head) symmetric int8 quantization over the last axis:
     f32 amax, round half to even, clip to ±127; the scale (..., 1) in f16."""
@@ -276,8 +269,8 @@ def _self_attention_full(x, p, cos, sin, cfg: ArchConfig, kv_dtype: str = "bf16"
     o = flash_attention(q, k, v, causal=True)
     if kv_dtype == "int8":
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
-        return _residual(x, _out_proj(o, p["w_o"])), (kq, vq, ks, vs)
-    return _residual(x, _out_proj(o, p["w_o"])), (k, v)
+        return residual(x, _out_proj(o, p["w_o"])), (kq, vq, ks, vs)
+    return residual(x, _out_proj(o, p["w_o"])), (k, v)
 
 
 def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, cache, rows, write, lengths):
@@ -300,7 +293,7 @@ def _self_attention_decode(x, p, cos, sin, cfg: ArchConfig, cache, rows, write, 
         write_slot(k_cache, k[:, 0].to(k_cache.dtype), rows, write)
         write_slot(v_cache, v[:, 0].to(v_cache.dtype), rows, write)
     o = decode_attention(q, k_cache, v_cache, lengths, *scales)
-    return _residual(x, _out_proj(o, p["w_o"]))
+    return residual(x, _out_proj(o, p["w_o"]))
 
 
 def _memory_kv(p: dict, memory: torch.Tensor):
@@ -327,11 +320,11 @@ def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool, group: int, capacity_fact
     """The MLP or MoE sublayer → (x, aux loss or None)."""
     xn = rms_norm(x, p["mlp_norm"], cfg.norm_eps)
     if not is_moe:
-        return _residual(x, mlp(xn, p, cfg.activation)), None
+        return residual(x, mlp(xn, p, cfg.activation)), None
     out, aux = moe_layer(xn, p["moe"], n_experts=cfg.n_experts, top_k=cfg.top_k,
                          activation=cfg.activation, group_size=group,
                          capacity_factor=capacity_factor)
-    return x + out, aux
+    return residual(x, out), aux
 
 
 # ---------------------------------------------------------------------------

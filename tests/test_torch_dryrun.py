@@ -1,9 +1,11 @@
 """The port's launch arithmetic and dry run: ``analytic_cost`` and the
 roofline against the reference's, ``comm_count``'s ring model against the
 reference's HLO parse on the same collectives, the H100 constants, and
-``python -m repro_torch.launch.dryrun`` on yi-6b and zamba2 cells over a
-fake process group (in a process of its own: a process has one default
-group).
+``python -m repro_torch.launch.dryrun`` over a fake process group (each run
+in a process of its own: a process has one default group, and the runs go
+side by side): yi-6b and zamba2 cells, an MoE cell on an int8 KV cache
+with ``--remat dots``, and xlstm-350m cells (shape only) with ``--remat
+none``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.launch import analytic_cost, comm_count, roofline  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
-TIMEOUT = 120  # seconds a subprocess may take
+TIMEOUT = 240  # seconds a subprocess may take
 ARCH_SHAPES = [(a, s) for a in REGISTRY for s in SHAPES_BY_NAME]
 VARIANTS = [
     dict(),
@@ -163,27 +165,51 @@ def test_comm_counter_records_what_dtensor_issues(tmp_path):
 
 DRY_ARCHS = ("yi-6b", "zamba2-2.7b")
 DRY_SHAPES = ("decode_32k", "train_4k", "long_500k")
+#: The runs with other flags: name → (archs, shapes, flags).
+VARIANT_RUNS = {
+    "int8": (("qwen3-235b-a22b",), ("decode_32k",), ("--kv-dtype", "int8", "--remat", "dots")),
+    "none": (("xlstm-350m",), ("train_4k", "decode_32k"), ("--remat", "none")),
+}
+
+
+def dryrun_cmd(archs, shapes, flags=()) -> list:
+    return [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", *archs,
+            "--shape", *shapes, *flags]
 
 
 @pytest.fixture(scope="module")
 def dry_records(tmp_path_factory):
-    out = tmp_path_factory.mktemp("dryrun")
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", *DRY_ARCHS,
-         "--shape", *DRY_SHAPES, "--out", str(out)],
-        env={**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"},
-        capture_output=True, text=True, timeout=TIMEOUT)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    records = {}
-    for name in os.listdir(out):
-        with open(out / name) as f:
-            rec = json.load(f)
-        records[(rec["arch"], rec["shape"])] = rec
-    return records, proc.stdout
+    """The default-flag records by (arch, shape), the runs' stdout, and each
+    variant run's records. zamba2's train_4k step (the longest) runs in a
+    process of its own beside the rest."""
+    root = tmp_path_factory.mktemp("dryrun")
+    runs = {"default": dryrun_cmd(DRY_ARCHS, [s for s in DRY_SHAPES if s != "train_4k"]),
+            "default_train": dryrun_cmd(DRY_ARCHS[:1], ["train_4k"]),
+            "default_train_hybrid": dryrun_cmd(DRY_ARCHS[1:], ["train_4k"])}
+    runs.update({name: dryrun_cmd(*run) for name, run in VARIANT_RUNS.items()})
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    procs = {name: subprocess.Popen([*cmd, "--out", str(root / name)], env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for name, cmd in runs.items()}
+    records, stdout = {}, ""
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=TIMEOUT)
+        finally:
+            proc.kill()
+        assert proc.returncode == 0, err[-3000:]
+        group = records.setdefault(name.split("_")[0], {})
+        for path in os.listdir(root / name):
+            with open(root / name / path) as f:
+                rec = json.load(f)
+            group[(rec["arch"], rec["shape"])] = rec
+        if name.startswith("default"):
+            stdout += out
+    return records.pop("default"), stdout, records
 
 
 def test_dryrun_writes_one_record_a_cell(dry_records):
-    records, stdout = dry_records
+    records, stdout, _ = dry_records
     assert set(records) == {(a, s) for a in DRY_ARCHS for s in DRY_SHAPES}
     assert all(r["mesh"] == "pod16x16" for r in records.values())
     assert stdout.count("\n[") + stdout.startswith("[") == len(records)
@@ -243,12 +269,76 @@ def test_skip_rule(dry_records):
 
 
 def test_other_families_are_shape_only(dry_records):
-    for shape in DRY_SHAPES:
-        rec = dry_records[0][("zamba2-2.7b", shape)]
+    """The xLSTM's step does not run on DTensors yet (ROADMAP A20): its
+    cells are placed, their collective term null."""
+    for shape in VARIANT_RUNS["none"][1]:
+        rec = dry_records[2]["none"][("xlstm-350m", shape)]
         assert rec["status"] == "shape_only"
         assert rec["collectives"] is None and rec["roofline"]["collective_s"] is None
         assert rec["roofline"]["dominant"] is None and rec["roofline"]["memory_s"] > 0
         assert rec["bytes_per_rank"]["params"] > 0
+
+
+@pytest.mark.parametrize("arch,shape", [("zamba2-2.7b", "train_4k"), ("zamba2-2.7b", "decode_32k"),
+                                        ("qwen3-235b-a22b", "decode_32k")])
+def test_moe_and_hybrid_cells_run_their_step(dry_records, arch, shape):
+    """The hybrid's and the MoE family's cells run their step on the meta
+    DTensors: status ok, the collectives counted, every roofline term."""
+    rec = dry_records[0].get((arch, shape)) or dry_records[2]["int8"][(arch, shape)]
+    assert rec["status"] == "ok"
+    colls = rec["collectives"]
+    assert sum(colls["counts"].values()) > 0 and colls["wire_bytes_per_chip"] > 0
+    assert all(rec["roofline"][k] > 0 for k in ("compute_s", "memory_s", "collective_s"))
+
+
+@pytest.mark.parametrize("run,arch,shape", [
+    ("int8", "qwen3-235b-a22b", "decode_32k"), ("none", "xlstm-350m", "train_4k"),
+    ("none", "xlstm-350m", "decode_32k")])
+def test_remat_and_kv_dtype_reach_the_cost_as_the_reference(dry_records, run, arch, shape):
+    """``--remat`` and ``--kv-dtype`` reach the analytic cost as the
+    reference's dry run passes them (its causal mode set to the triangle);
+    an int8 cache is placed in int8 with f16 scales."""
+    rec = dry_records[2][run][(arch, shape)]
+    flags = dict(zip(VARIANT_RUNS[run][2][::2], VARIANT_RUNS[run][2][1::2]))
+    remat, kv_dtype = flags["--remat"], flags.get("--kv-dtype", "bf16")
+    assert rec["variant"] == {"causal_mode": "triangle", "remat": remat, "kv_dtype": kv_dtype}
+    cell = REF_SHAPES[shape]
+    want = ref_cost.cell_cost(REF_REGISTRY[arch], cell, rec["params"], causal_mode="triangle",
+                              moe_cf=1.25 if cell.kind == "train" else 2.0,
+                              optimizer=rec.get("optimizer", "adamw"), remat=remat,
+                              kv_dtype=kv_dtype)
+    assert rec["analytic_cost"] == want.as_dict()
+    if kv_dtype == "int8":
+        # qwen3's 4 KV heads do not divide the 16-wide model axis, so the
+        # cache shards its sequence: 128/16 sequences x 32,768/16 positions x
+        # 94 layers x (K, V) x 4 heads x (128 int8 codes + one f16 scale)
+        assert rec["policy"]["rules"]["kv_seq"] == "model"
+        assert rec["bytes_per_rank"]["cache"] == 8 * 2048 * 94 * 2 * 4 * (128 + 2)
+
+
+def test_ssd_scan_on_meta_gives_the_plain_shapes():
+    """The dry run's meta tensors take the SSD scan's and its backward's
+    shapes and dtypes without running the scan; they equal the plain
+    version's on the CPU."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(0)
+        x, log_a = torch.randn(2, 3, 70, 8, generator=gen), -torch.rand(2, 3, 70, generator=gen)
+        b, c = (torch.randn(2, 70, 4, generator=gen).to(dtype) for _ in range(2))
+        dy, ds = torch.randn_like(x), torch.randn(2, 3, 8, 4)
+
+        def meta(*ts):
+            return [t.to("meta") for t in ts]
+
+        cpu = ssd.ssd_scan(x, log_a, b, c, return_states=True)
+        for args, run in (((x, log_a, b, c), lambda *a: ssd.ssd_scan(*a, return_states=True)),
+                          ((x, log_a, b, c, dy, ds, cpu[2]), ssd.ssd_scan_backward)):
+            want, got = run(*args), run(*meta(*args))
+            assert [(t.shape, t.dtype) for t in got] == [(t.shape, t.dtype) for t in want]
+            assert all(t.device.type == "meta" for t in got)
 
 
 def test_dryrun_module_does_nothing_at_import():

@@ -214,8 +214,11 @@ from repro_torch.configs import REGISTRY, SHAPES_BY_NAME
 from repro_torch.models import Model as PortModel
 from repro_torch.training.tree import flatten_with_paths
 ADAFACTOR_THRESHOLD = 4e10
-def cache_shapes(cfg, cell):
-    return {p: tuple(t.shape) for p, t in flatten_with_paths(PortModel(cfg).cache_specs(cell))}
+KV_DTYPES = {"cache": "bf16", "cache_int8": "int8"}
+def kv_dtypes(cfg):  # the families with a transformer KV cache keep an int8 one too
+    return KV_DTYPES if cfg.family not in ("hybrid", "ssm") else {"cache": "bf16"}
+def cache_shapes(cfg, cell, kv_dtype="bf16"):
+    return {p: tuple(t.shape) for p, t in flatten_with_paths(PortModel(cfg, kv_dtype=kv_dtype).cache_specs(cell))}
 out = {}
 """
 
@@ -248,10 +251,11 @@ for name in REGISTRY:
             o_shapes = {p: s.shape for p, s in items(o_abs).items()}
             rec["opt"] = local(mesh, pol.rules, items(train_loop.opt_state_axes(model, tcfg), is_axes),
                                o_shapes)
-            shapes = cache_shapes(RR[name], cell)
-            axes = {p: model_zoo._cache_leaf_axes(type("Leaf", (), {"shape": s}), RR[name],
-                                                  pol.kv_heads_sharded) for p, s in shapes.items()}
-            rec["cache"] = local(mesh, pol.rules, axes, shapes)
+            for key, kv_dtype in kv_dtypes(REGISTRY[name]).items():
+                shapes = cache_shapes(REGISTRY[name], cell, kv_dtype)
+                axes = {p: model_zoo._cache_leaf_axes(type("Leaf", (), {"shape": s}), RR[name],
+                                                      pol.kv_heads_sharded) for p, s in shapes.items()}
+                rec[key] = local(mesh, pol.rules, axes, shapes)
             out[f"{name}/{shape}/{mname}"] = rec
 json.dump(out, open(sys.argv[1], "w"))
 """
@@ -277,8 +281,10 @@ for name, cfg in REGISTRY.items():
             tcfg = TrainConfig(optimizer=opt)
             _, o_abs = abstract_train_state(model, tcfg)
             rec["opt"] = local(distribute_tree(o_abs, tree_placements(opt_state_axes(model, tcfg), mesh, pol.rules)))
-            axes = model.cache_axes(cell, kv_shardable=pol.kv_heads_sharded)
-            rec["cache"] = local(distribute_tree(model.cache_specs(cell), tree_placements(axes, mesh, pol.rules)))
+            for key, kv_dtype in kv_dtypes(cfg).items():
+                m = PortModel(cfg, kv_dtype=kv_dtype)
+                axes = m.cache_axes(cell, kv_shardable=pol.kv_heads_sharded)
+                rec[key] = local(distribute_tree(m.cache_specs(cell), tree_placements(axes, mesh, pol.rules)))
             out[f"{name}/{shape}/{mname}"] = rec
 json.dump(out, open(sys.argv[1], "w"))
 """
@@ -303,6 +309,7 @@ def test_local_shapes_as_reference(tmp_path):
         with open(out) as f:
             got[side] = json.load(f)
     assert len(got["port"]) == len(CELLS)
+    assert "cache_int8" in got["port"]["yi-6b/decode_32k/pod16x16"]
     assert got["port"] == got["ref"]
 
 
@@ -373,41 +380,12 @@ sys.path.insert(0, TESTS)
 import torch_mesh_worker as worker  # noqa: E402
 
 
-def run_ranks(phase: str, world: int, out) -> list[dict]:
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join([SRC, TESTS]), "OMP_NUM_THREADS": "1"}
-    init = out / f"rendezvous_{phase}"
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(TESTS, "torch_mesh_worker.py"), "--phase", phase,
-         "--rank", str(r), "--world", str(world), "--init", str(init), "--out", str(out)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(world)]
-    errors = []
-    for proc in procs:
-        try:
-            _, err = proc.communicate(timeout=TIMEOUT)
-        except subprocess.TimeoutExpired:
-            err = f"rank timed out after {TIMEOUT} s"
-        finally:
-            proc.kill()
-        if proc.returncode != 0:
-            errors.append(err[-3000:])
-    assert not errors, errors
-    return [torch.load(out / f"{phase}_rank{r}.pt") for r in range(world)]
-
-
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     out = tmp_path_factory.mktemp("mesh")
-    world2 = run_ranks("world2", 2, out)
-    world1 = run_ranks("world1", 1, out)
+    world2 = worker.run_ranks("world2", 2, out)
+    world1 = worker.run_ranks("world1", 1, out)
     return world2, world1[0]
-
-
-def close(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> None:
-    got, want = got.float(), want.float()
-    scale = max(1.0, want.abs().max().item())
-    err = (got - want).abs().max().item()
-    assert err <= tol * scale, f"{what}: max |diff| {err:.3g} against {tol} x {scale:.3g}"
 
 
 def reference_loss_and_grads(arch: str, params: dict, batch: dict) -> tuple:
@@ -439,10 +417,10 @@ def test_loss_and_grads_match_one_process(mesh_runs, arch):
     assert set(paths) == set(ref_grads)
     for got in world2:  # each rank gathered the same whole values
         for want, what in ((loss.detach(), "one process"), (ref_loss, "reference")):
-            close(got[f"{arch}/loss"], want, 1e-5, f"loss against the {what}")
+            worker.close(got[f"{arch}/loss"], want, 1e-5, f"loss against the {what}")
         for path, g in zip(paths, grads):
-            close(got[f"{arch}/grad{path}"], g, 1e-5, f"{path} against one process")
-            close(got[f"{arch}/grad{path}"], ref_grads[path], 1e-5, f"{path} against the reference")
+            worker.close(got[f"{arch}/grad{path}"], g, 1e-5, f"{path} against one process")
+            worker.close(got[f"{arch}/grad{path}"], ref_grads[path], 1e-5, f"{path} against the reference")
 
 
 @pytest.mark.parametrize("arch", worker.ARCHS)
@@ -453,11 +431,11 @@ def test_decode_on_a_sharded_cache_matches_one_process(mesh_runs, arch):
     with torch.no_grad():
         logits, cache = model.decode_step(worker.f32_params(model), cache, batch)
     for got in world2:
-        close(got[f"{arch}/decode_logits"], logits, 1e-5, "logits")
+        worker.close(got[f"{arch}/decode_logits"], logits, 1e-5, "logits")
         for g, want in zip(got[f"{arch}/decode_cache"], cache):
             # a head-sharded projection sums in another order, which may
             # round the written K/V to the neighbouring bf16 value
-            close(g, want, 2 ** -8, "cache")
+            worker.close(g, want, 2 ** -8, "cache")
 
 
 def test_cache_layouts(mesh_runs):
@@ -480,7 +458,7 @@ def test_launcher_on_a_mesh_matches_one_device(mesh_runs, tmp_path):
 
     _, world1 = mesh_runs
     plain = train("yi-6b", ckpt_dir=str(tmp_path / "plain"), **worker.LAUNCH)
-    close(world1["launch/losses"], torch.tensor(plain["losses"]), 1e-5, "launcher losses")
+    worker.close(world1["launch/losses"], torch.tensor(plain["losses"]), 1e-5, "launcher losses")
 
 
 def test_launcher_takes_a_config_as_it_is(tmp_path):
@@ -501,6 +479,24 @@ def test_launcher_refuses_the_families_not_yet_sharded(tmp_path):
                             world_size=1)
     try:
         with pytest.raises(NotImplementedError, match="A20"):
-            train("zamba2-2.7b", ckpt_dir=str(tmp_path / "ck"), **worker.LAUNCH)
+            train("xlstm-350m", ckpt_dir=str(tmp_path / "ck"), **worker.LAUNCH)
     finally:
         dist.destroy_process_group()
+
+
+def test_launcher_trains_the_hybrid_on_a_one_rank_mesh(tmp_path):
+    """``train("zamba2-2.7b")`` on a one-rank gloo group (the mesh path:
+    DTensors, its SSM heads on their one shard) gives the plain launcher's
+    losses."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import train
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = train("zamba2-2.7b", ckpt_dir=str(tmp_path / "mesh"), **worker.LAUNCH)
+    finally:
+        dist.destroy_process_group()
+    plain = train("zamba2-2.7b", ckpt_dir=str(tmp_path / "plain"), **worker.LAUNCH)
+    worker.close(torch.tensor(mesh["losses"]), torch.tensor(plain["losses"]), 1e-5,
+                 "launcher losses")

@@ -12,13 +12,20 @@ parameters; three AdamW steps of reduced yi-6b, a checkpoint, and the
 next step's loss. ``world1`` (one rank): that checkpoint restored onto a
 1 x 1 mesh through ``placements=`` and the next step's loss; the training
 launcher on the mesh. ``collectives`` (any world): two rounds of
-``compressed_all_reduce`` over the world.
+``compressed_all_reduce`` over the world. ``families2`` (two ranks on a
+1 x 2 mesh): the MoE and hybrid families (reduced qwen3-235b-a22b, at
+``moe_group`` 1 and the default, and zamba2-2.7b, f32 parameters): the
+loss and gradients, a decode step and a prefill; a decode step and a
+prefill on an int8 KV cache of yi-6b, gemma-2b and qwen3; the collectives
+one MoE layer's forward and backward issue.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -28,16 +35,25 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ShapeCell, get_config
 from repro_torch.distributed.collectives import compressed_all_reduce
 from repro_torch.distributed.sharding import distribute_tree, tree_placements, use_rules
+from repro_torch.launch.comm_count import CommCounter
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.policy import build_policy
 from repro_torch.launch.train import train
 from repro_torch.models import Model
+from repro_torch.models.moe import moe_layer
 from repro_torch.training import TrainConfig, make_train_step, opt_state_axes
 from repro_torch.training.tree import flatten_with_paths, leaves, map_tree
 
 ARCHS = ("yi-6b", "gemma-2b")
+#: ``families2``'s cases: tag → (arch, Model keywords); ``INT8`` the int8
+#: KV cache's.
+FAMILIES = {"qwen3-235b-a22b": ("qwen3-235b-a22b", {}),
+            "qwen3-235b-a22b/group1": ("qwen3-235b-a22b", {"moe_group": 1}),
+            "zamba2-2.7b": ("zamba2-2.7b", {})}
+INT8 = {f"{a}/int8": (a, {"kv_dtype": "int8"}) for a in ("yi-6b", "gemma-2b", "qwen3-235b-a22b")}
 TRAIN = ShapeCell("mesh_train", "train", 16, 2)
 DECODE = ShapeCell("mesh_decode", "decode", 32, 2)
+PREFILL = ShapeCell("mesh_prefill", "prefill", TRAIN.seq_len, TRAIN.global_batch)
 DECODE_INDEX = (20, 5)  # one position in each half of the 32-position cache
 CKPT_STEPS = 3
 TCFG = TrainConfig(total_steps=8, warmup_steps=1)
@@ -46,12 +62,17 @@ LAUNCH = dict(steps=2, seq_len=32, global_batch=4, device="cpu", ckpt_every=100,
 
 
 def f32_params(model: Model) -> dict:
-    """Seeded parameters in f32, w_q and w_k tempered by 0.1 as the repo's
-    comparisons do (the reference's init leaves attention near arg-max,
-    where f32 rounding of a reordered sum is amplified ~1e3 times)."""
+    """Seeded parameters in f32, every w_q and w_k tempered by 0.1 as the
+    repo's comparisons do (the reference's init leaves attention near
+    arg-max, where f32 rounding of a reordered sum is amplified ~1e3
+    times), the hybrid's LoRA ``b_*`` (zero at init) drawn nonzero."""
     params = map_tree(lambda t: t.float(), model.init(0, device="cpu"))
-    for key in ("w_q", "w_k"):
-        params["blocks"][key].mul_(0.1)
+    rng = np.random.default_rng(7)
+    for path, t in flatten_with_paths(params):
+        if path.endswith(("['w_q']", "['w_k']")):
+            t.mul_(0.1)
+        elif path.startswith("['lora']['b_"):
+            t.copy_(torch.as_tensor(rng.normal(0.0, 0.05, t.shape), dtype=t.dtype))
     return params
 
 
@@ -62,11 +83,20 @@ def train_batch(cfg, seed: int = 0) -> dict:
             "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
 
 
-def decode_inputs(model: Model) -> tuple[tuple, dict]:
-    """A cache of seeded bf16 values and one decode step's batch."""
+def decode_inputs(model: Model) -> tuple:
+    """A cache of seeded values (int8 codes in [-127, 127] and f16 scales in
+    [0.005, 0.02] for an int8 cache, normal values otherwise) and one decode
+    step's batch."""
     rng = np.random.default_rng(1)
-    cache = tuple(torch.as_tensor(rng.normal(size=t.shape), dtype=torch.float32).to(t.dtype)
-                  for t in model.cache_specs(DECODE))
+
+    def draw(t: torch.Tensor) -> torch.Tensor:
+        if t.dtype == torch.int8:
+            return torch.as_tensor(rng.integers(-127, 128, t.shape), dtype=torch.int8)
+        if t.dtype == torch.float16:
+            return torch.as_tensor(rng.uniform(0.005, 0.02, t.shape), dtype=torch.float16)
+        return torch.as_tensor(rng.normal(size=t.shape), dtype=torch.float32).to(t.dtype)
+
+    cache = map_tree(draw, model.cache_specs(DECODE))
     toks = rng.integers(0, model.cfg.vocab, size=(DECODE.global_batch, 1))
     return cache, {"tokens": torch.as_tensor(toks, dtype=torch.int32),
                    "index": torch.tensor(DECODE_INDEX, dtype=torch.int32)}
@@ -76,10 +106,47 @@ def full(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def model_case(mesh, arch: str, out: dict) -> None:
+def model_case(mesh, arch: str, out: dict, tag: str = "", train: bool = True,
+               prefill: bool = False, **model_kw) -> None:
+    """``arch``'s loss and gradients (unless ``train`` is False), a decode
+    step on a placed cache and, with ``prefill``, a prefill, each gathered
+    whole, under ``tag``."""
+    tag = tag or arch
     cfg = get_config(arch).reduced()
-    model = Model(cfg)
+    model = Model(cfg, **model_kw)
     plain = f32_params(model)
+    if train:
+        train_case(mesh, model, plain, tag, out)
+    policy = build_policy(cfg, DECODE, mesh)
+    cache, batch = decode_inputs(model)
+    cache_axes = model.cache_axes(DECODE, kv_shardable=policy.kv_heads_sharded)
+    cache = distribute_tree(cache, tree_placements(cache_axes, mesh, policy.rules))
+    out[f"{tag}/cache_placements"] = [str(t.placements) for t in leaves(cache)]
+    params = distribute_tree(plain, tree_placements(model.axes(), mesh, policy.rules))
+    batch = distribute_tree(batch, tree_placements(model.input_axes(DECODE), mesh, policy.rules))
+    with use_rules(policy.rules), torch.no_grad():
+        logits, cache = model.decode_step(params, cache, batch)
+    out[f"{tag}/decode_logits"] = full(logits)
+    out[f"{tag}/decode_cache"] = [full(t) for t in leaves(cache)]
+    if prefill:
+        prefill_case(mesh, model, plain, tag, out)
+
+
+def prefill_case(mesh, model: Model, plain: dict, tag: str, out: dict) -> None:
+    """A prefill of the training batch's prompts on the mesh: its logits
+    and decode state, gathered whole."""
+    rules = build_policy(model.cfg, PREFILL, mesh).rules
+    params = distribute_tree(plain, tree_placements(model.axes(), mesh, rules))
+    batch = {"tokens": train_batch(model.cfg)["tokens"]}
+    batch = distribute_tree(batch, tree_placements(model.input_axes(PREFILL), mesh, rules))
+    with use_rules(rules), torch.no_grad():
+        logits, state = model.prefill(params, batch)
+    out[f"{tag}/prefill_logits"] = full(logits)
+    out[f"{tag}/prefill_state"] = [full(t) for t in leaves(state)]
+
+
+def train_case(mesh, model: Model, plain: dict, tag: str, out: dict) -> None:
+    cfg = model.cfg
     rules = build_policy(cfg, TRAIN, mesh).rules
     params = distribute_tree(plain, tree_placements(model.axes(), mesh, rules))
     p_leaves = leaves(params)
@@ -89,21 +156,33 @@ def model_case(mesh, arch: str, out: dict) -> None:
     with use_rules(rules):
         loss, _ = model.loss(params, batch)
         grads = torch.autograd.grad(loss, p_leaves)
-    out[f"{arch}/loss"] = full(loss).detach()
+    out[f"{tag}/loss"] = full(loss).detach()
     for (path, _), g in zip(flatten_with_paths(params), grads):
-        out[f"{arch}/grad{path}"] = full(g)
+        out[f"{tag}/grad{path}"] = full(g)
 
-    policy = build_policy(cfg, DECODE, mesh)
-    cache, batch = decode_inputs(model)
-    cache_axes = model.cache_axes(DECODE, kv_shardable=policy.kv_heads_sharded)
-    cache = distribute_tree(cache, tree_placements(cache_axes, mesh, policy.rules))
-    out[f"{arch}/cache_placements"] = [str(t.placements) for t in cache]
-    params = distribute_tree(plain, tree_placements(model.axes(), mesh, policy.rules))
-    batch = distribute_tree(batch, tree_placements(model.input_axes(DECODE), mesh, policy.rules))
-    with use_rules(policy.rules), torch.no_grad():
-        logits, cache = model.decode_step(params, cache, batch)
-    out[f"{arch}/decode_logits"] = full(logits)
-    out[f"{arch}/decode_cache"] = [full(t) for t in cache]
+
+def moe_comms_case(mesh, out: dict) -> None:
+    """One MoE layer of reduced qwen3's forward and backward under
+    ``CommCounter``: every collective's (op, bytes, group size), the
+    bytes of each expert weight, and their placements after."""
+    model = Model(get_config("qwen3-235b-a22b").reduced())
+    rules = build_policy(model.cfg, TRAIN, mesh).rules
+    params = distribute_tree(f32_params(model), tree_placements(model.axes(), mesh, rules))
+    moe = {k: v[0].detach().requires_grad_(True) if not isinstance(v, dict) else v
+           for k, v in params["blocks"]["moe_block"]["moe"].items()}
+    x = torch.as_tensor(np.random.default_rng(3).normal(size=(TRAIN.global_batch, TRAIN.seq_len,
+                                                               model.cfg.d_model)),
+                        dtype=torch.float32)
+    x = distribute_tree(x, tree_placements(("batch", None, "embed"), mesh, rules))
+    cfg = model.cfg
+    with use_rules(rules), CommCounter() as counter:
+        y, aux = moe_layer(x, moe, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                           activation=cfg.activation)
+        torch.autograd.grad((y.sum() + aux), [moe["w_up"], moe["w_down"], moe["w_gate"]])
+    out["moe/records"] = counter.records
+    out["moe/expert_bytes"] = {k: v.numel() * v.element_size() for k, v in moe.items()
+                               if k.startswith("w_")}
+    out["moe/placements"] = {k: str(v.placements) for k, v in moe.items()}
 
 
 def train_state(mesh, model: Model):
@@ -160,9 +239,47 @@ def collectives_case(out: dict) -> None:
             out[f"comp/{name}/{r}/err"] = err
 
 
+TESTS = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(os.path.dirname(TESTS), "src")
+TIMEOUT = 120  # seconds a rank may take
+
+
+def run_ranks(phase: str, world: int, out) -> list[dict]:
+    """``phase`` on ``world`` gloo ranks, each a process of its own meeting
+    through a file under the directory ``out`` → each rank's results."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([SRC, TESTS]), "OMP_NUM_THREADS": "1"}
+    init = out / f"rendezvous_{phase}"
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase", phase, "--rank", str(r),
+         "--world", str(world), "--init", str(init), "--out", str(out)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    errors = []
+    for proc in procs:
+        try:
+            _, err = proc.communicate(timeout=TIMEOUT)
+        except subprocess.TimeoutExpired:
+            err = f"rank timed out after {TIMEOUT} s"
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            errors.append(err[-3000:])
+    assert not errors, errors
+    return [torch.load(out / f"{phase}_rank{r}.pt") for r in range(world)]
+
+
+def close(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> None:
+    """``got`` within ``tol`` of ``want``'s largest magnitude (at least 1)."""
+    got, want = got.float(), want.float()
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().max().item()
+    assert err <= tol * scale, f"{what}: max |diff| {err:.3g} against {tol} x {scale:.3g}"
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["world2", "world1", "collectives"], required=True)
+    ap.add_argument("--phase", choices=["world2", "world1", "collectives", "families2"],
+                    required=True)
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--init", required=True, help="rendezvous file")
@@ -178,6 +295,12 @@ def main() -> None:
         for arch in ARCHS:
             model_case(mesh, arch, out)
         ckpt_case(mesh, ckpt_dir, out)
+    elif args.phase == "families2":
+        for tag, (arch, kw) in FAMILIES.items():
+            model_case(mesh, arch, out, tag, prefill=True, **kw)
+        for tag, (arch, kw) in INT8.items():
+            model_case(mesh, arch, out, tag, train=False, prefill=True, **kw)
+        moe_comms_case(mesh, out)
     elif args.phase == "world1":
         restore_case(mesh, ckpt_dir, out)
         run = train("yi-6b", ckpt_dir=os.path.join(args.out, "launch"), **LAUNCH)
