@@ -20,7 +20,12 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    yi-6b L=4096, paged at 2 slots x 65,536), with the tolerance, flash's
    variant and paged's split count printed, and times the kernel, the
    plain version and, where one exists, one PyTorch call computing the same
-   function as a yardstick (the port never calls it);
+   function as a yardstick (the port never calls it); the paged kernel's
+   log-sum-exp at yi-6b's short pool, bf16 and int8 pages: against the
+   plain version's, a cache cut into two halves by position merged by
+   ``combine_partials`` (as the sequence-parallel decode merges its
+   shards) against the whole cache's kernel output, a row of length 0
+   (output 0, lse -inf), the kernel's ms with and without the lse;
 2b. the flash kernel's backward (``[flash-bwd]``): the forward's
    log-sum-exp and ``csrc/flash_attention_bwd.cu`` against their plain
    versions at yi-6b's heads (B 2, L 1024 and 2048), qwen3's G 16, zamba2's
@@ -85,7 +90,18 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    ``[train-mesh]`` (``train`` takes the mesh path while a group is up):
    each loss within 1e-3 (bit-equality printed), the SSD scan's forward and
    backward and flash's forward and backward launched as often on both
-   sides, both step times printed;
+   sides, both step times printed. Also on the group, before it:
+   ``[decode-mesh-vlm-audio]`` prefills 8 slots of qwen2-vl-7b and of
+   musicgen-medium, each at full width with 2 of its layers, and decodes 8
+   greedy steps on DTensors and on plain tensors (musicgen's self and
+   cross caches laid out along their sequence, as the 16-wide mesh lays
+   them out, so its decode runs the sequence-parallel path with the
+   kernel's lse): the tokens identical, flash and paged launched as often
+   on both sides, both step times printed; and the mesh side of
+   ``[train-mesh-xlstm]``: 2 steps of xlstm-350m at full width and depth
+   (24 blocks), B 2 x L 256, on DTensors, no checkpoint written; its plain
+   side runs after ``[train-mesh-hybrid]``'s: each loss within 1e-3
+   (bit-equality printed), both step times printed;
 3. serves 16 requests through the port's ``TwoPoolServer`` on full-width
    yi-6b (random bf16 weights from a seed): short pool c_max 512 with 8
    slots, long pool c_max 2048 with 2 slots. The kernels' launch counters
@@ -98,9 +114,10 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
 4. the same on yi-6b with an int8 KV cache (``Model(cfg,
    kv_dtype="int8")``, the same weights and draw): the int8 paged kernel
    must run, and its decode logits are held against the bf16 forward;
-5. the same on full-width zamba2-2.7b (54 Mamba-2 blocks, 2 shared
-   attention blocks applied 9 times; random bf16 weights from seed 0): the
-   SSD scan, flash and paged kernels must each run;
+5. the same on full-width zamba2-2.7b, depth cut (``CUT_LAYERS``: 18 of
+   its 54 Mamba-2 blocks, the 2 shared attention blocks applied 3 times;
+   random bf16 weights from seed 0): the SSD scan, flash and paged kernels
+   must each run;
 5b. the MoE family at full width, depth cut (``CUT_LAYERS``, through
    ``cut_model``; the cut and the weights' bytes printed): qwen3-235b-a22b (4 of 94 layers, 128
    experts top-8, GQA group 16) serves the same 16-request draw through the
@@ -176,7 +193,7 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    ``sim_decode`` counter is set to 0 just before it and read just after:
    one launch a round;
 7b. windowed telemetry on the card (``[telemetry]`` lines): the routed
-   Table-2 fleet of phase 6 (10,000 requests) again with
+   Table-2 fleet of phase 6's 1,000-request run again with
    ``TelemetryConfig(window=512, events=False)``; it prints every sample
    (queue depth, active slots and KV share per pool), the wall, iters,
    rounds, host syncs and ``sim_decode`` launches (counter set to 0 just
@@ -222,7 +239,10 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    ``[train-hybrid]``'s, and with ``ssd_scan`` and ``flash_attention_d80``
    ``[train-mesh-hybrid]``'s in ``launches_by_path``;
    ``paged_attention_int8_g16``, held in phase 2 at qwen3's H 64 K 4 on
-   int8 pages, with ``[decode-mesh-moe]``'s), the card's name
+   int8 pages, with ``[decode-mesh-moe]``'s; the ``_g7``, ``_d64`` and
+   ``_cross`` rows with ``[decode-mesh-vlm-audio]``'s in
+   ``launches_by_path``; ``paged_attention`` and ``paged_attention_int8``
+   with the lse's ms beside the same launch's without it), the card's name
    and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -282,6 +302,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels import paged_attention as paged_mod  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
+    combine_partials,
     paged_attention,
     paged_attention_plain,
     split_count,
@@ -304,6 +325,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_scan_plain,
 )
 from repro_torch.distributed.sharding import (  # noqa: E402
+    AxisRules,
     distribute_tree,
     tree_placements,
     use_rules,
@@ -408,8 +430,12 @@ WIDTH_SERVES = {LLAMA3: ("serve-llama3", "g8"), GEMMA: ("serve-gemma", "d256"),
 #: 80 would be ~141 GB, past one card). The other three are cut for the
 #: run's time: with the four dense configs at 8 layers the script read
 #: 1211.6 s of its 1200 s on one H100 host (their serves are host bound,
-#: each decode step's time about its launches'), so each keeps 4.
-CUT_LAYERS = {MOE: 4, SCOUT: 2, MAVERICK: 2, LLAMA3: 4, GEMMA: 4, GRANITE8: 4, GRANITE34: 4}
+#: each decode step's time about its launches'), so each keeps 4. zamba2's
+#: serve keeps 18 of its 54 Mamba-2 blocks (3 groups: both shared attention
+#: blocks run) for the same reason: whole, its serve took 194 s of a run
+#: that ended at 1128.8 s on a slow host.
+CUT_LAYERS = {MOE: 4, SCOUT: 2, MAVERICK: 2, LLAMA3: 4, GEMMA: 4, GRANITE8: 4, GRANITE34: 4,
+              HYBRID: 18}
 #: Decode steps of the scout and maverick runs (after the 8 slots' prefills).
 SCOUT_STEPS = 16
 #: The xLSTM (O(1) decode state, no KV cache), served at full width and
@@ -482,8 +508,8 @@ SIM_DECODE_SLOT_OPS = 40
 GRID = dict(fig6_requests=500, fig6_rate=20.0, fig6_seed=42,
             fig6_thresholds=(2048, 4096, 8192, 16_384, 32_768), cross=500,
             requests=500, ladders=(1, 4, 16), profile=100)
-# Windowed telemetry (``[telemetry]``): the routed Table-2 run of ``[des]``
-# with windows of ``window`` dispatched requests; the card-against-CPU
+# Windowed telemetry (``[telemetry]``): ``[des]``'s routed run of ``DES["cross"]``
+# requests with windows of ``window`` dispatched requests; the card-against-CPU
 # check on a ``cross``-request trace of the same spec, the short pool cut
 # to ``cut`` of its instances so the AIMD controller (windows of
 # ``control_window``) moves the boundary.
@@ -584,6 +610,18 @@ MESH_TRAIN_HYBRID = dict(layers=6, batch=2, seq=2048, steps=4, loss_rtol=1e-3)
 # ``prompt`` tokens a slot, then ``steps`` greedy decode steps, on DTensors
 # and on plain tensors; steps 1 to ``steps`` - 1 timed.
 MESH_DECODE_MOE = dict(layers=2, slots=8, c_max=512, prompt=128, steps=16)
+# ``[train-mesh-xlstm]``: xlstm-350m at full width and depth (24 blocks),
+# B x L tokens, ``steps`` steps through ``launch.train.train`` on DTensors
+# and on plain tensors, no checkpoint written; the last step is timed (the
+# first pays DTensor's sharding propagation, which it then caches).
+MESH_TRAIN_XLSTM = dict(layers=24, batch=2, seq=256, steps=2, loss_rtol=1e-3)
+# ``[decode-mesh-vlm-audio]``: qwen2-vl-7b and musicgen-medium at full width,
+# ``layers`` of their 28 and 48, ``slots`` x ``c_max`` caches (musicgen's self
+# and cross caches laid out along their sequence, as a model axis its 24 KV
+# heads do not divide lays them out), ``prompt`` positions a slot prefilled,
+# then ``steps`` greedy decode steps, on DTensors and on plain tensors; steps
+# 1 to ``steps`` - 1 timed.
+MESH_DECODE_EMBED = dict(layers=2, slots=8, c_max=512, prompt=128, steps=8)
 # ``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on llama3-70b's
 # decode_32k and train_4k on the 16 x 16 mesh, a process of its own started
 # with the script and read after ``[roofline]``.
@@ -799,6 +837,88 @@ def paged_phase(dev, flush, *, heads: tuple[int, int, int], tag: str, int8: bool
     return rows
 
 
+def paged_lse_phase(dev, flush, *, heads: tuple[int, int, int], tag: str,
+                    int8: bool = False) -> dict:
+    """``[paged]``'s log-sum-exp at the short pool (8 slots x 512, ragged
+    lengths, one inside the first half; bf16 pages, or int8 with f16
+    scales): the kernel's lse against the plain version's (LSE_TOL); the
+    cache cut into two halves by position, each half's kernel output and
+    lse with q in f32 (as the sequence-parallel decode runs it, local
+    lengths ``clamp(length - offset, 0, half)``) merged by
+    ``combine_partials`` (the sequence-parallel path's function), cast once
+    to bf16, against the whole cache's kernel output (KERNEL_TOL and
+    ROW_ULPS a row) and its lse; a row of length 0 gives an output of 0 and
+    an lse of -inf, no NaN, the other rows unchanged; the output bit for
+    bit with and without the lse; the kernel's ms with and without it."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    H, K, D = heads
+    _, slots, c_max = POOLS[0]
+    half = c_max // 2
+    q = torch.randn(slots, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    kc = torch.randn(slots, c_max, K, D, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(slots, c_max, K, D, generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.randint(1, c_max + 1, (slots,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[-1] = half // 3
+    sc: tuple = ()
+    if int8:
+        (kc, ks), (vc, vs) = quantize_kv(kc), quantize_kv(vc)
+        sc = (ks, vs)
+
+    def paged(qx, cache: tuple, lens, **kw):
+        n = cache[0].shape[1]
+        bt = ops.slot_block_table(slots, n, dev)
+        pages = (t.view(-1, ops.PAGE, K, t.shape[-1]) for t in cache)
+        k_p, v_p, *s_p = pages
+        return paged_attention(qx, k_p, v_p, bt, lens, *s_p, **kw)
+
+    cache = (kc, vc, *sc)
+    out, lse = paged(q, cache, lengths, return_lse=True)
+    torch.cuda.synchronize()
+    if not torch.equal(out, paged(q, cache, lengths)):
+        fail(f"[paged] {tag}: the output with the lse differs from the output without it")
+    bt = ops.slot_block_table(slots, c_max, dev)
+    plain_out, plain_lse = paged_attention_plain(
+        q, *(t.view(-1, ops.PAGE, K, t.shape[-1]) for t in cache[:2]), bt, lengths,
+        *(t.view(-1, ops.PAGE, K, 1) for t in sc), return_lse=True)
+    lse_err = (lse - plain_lse).abs().max().item()
+    parts = [paged(q.float(), tuple(t[:, i:i + half].contiguous() for t in cache),
+                   (lengths - i).clamp(0, half).to(torch.int32), return_lse=True)
+             for i in (0, half)]
+
+    def stacked(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+
+    merged, merged_lse = combine_partials(torch.stack([o for o, _ in parts]),
+                                          torch.stack([l_ for _, l_ in parts]), stacked)
+    err, ulps = check_close(merged.to(torch.bfloat16), out, f"[paged] {tag} two halves merged")
+    merged_lse_err = (merged_lse - lse).abs().max().item()
+    empty = not torch.isneginf(parts[1][1][-1]).all().item()
+    zero = lengths.clone()
+    zero[0] = 0
+    out0, lse0 = paged(q, cache, zero, return_lse=True)
+    torch.cuda.synchronize()
+    zero_ok = (not out0.isnan().any().item() and not lse0.isnan().any().item()
+               and not out0[0].any().item() and torch.isneginf(lse0[0]).all().item()
+               and torch.equal(out0[1:], out[1:]) and torch.equal(lse0[1:], lse[1:]))
+    row = dict(lse_err=lse_err, merged_err=err, merged_ulps=ulps, merged_lse_err=merged_lse_err,
+               ms=time_ms(lambda: paged(q, cache, lengths), flush=flush),
+               lse_ms=time_ms(lambda: paged(q, cache, lengths, return_lse=True), flush=flush))
+    print(f"[paged] {tag} lse at {slots} x {c_max} (lengths {lengths.tolist()}): kernel vs plain "
+          f"max |diff| {lse_err:.3g} (tol {LSE_TOL}); two halves by position merged by "
+          f"combine_partials vs the whole cache's kernel: err {err:.3g}, worst row {ulps:.3g} "
+          f"ulps (tol {ROW_ULPS}), lse {merged_lse_err:.3g}; a row of length 0: output 0, lse "
+          f"-inf, no NaN, other rows unchanged: {zero_ok}; kernel {row['ms']:.4f} ms without "
+          f"the lse, {row['lse_ms']:.4f} ms with it", flush=True)
+    if not lse_err <= LSE_TOL or not merged_lse_err <= LSE_TOL:
+        fail(f"[paged] {tag}: lse differs from the plain version's ({lse_err}) or the merged "
+             f"halves' from the whole's ({merged_lse_err}), tol {LSE_TOL}")
+    if empty:
+        fail(f"[paged] {tag}: the second half of a row inside the first half gave a finite lse")
+    if not zero_ok:
+        fail(f"[paged] {tag}: a row of length 0 gave {out0[0]}, lse {lse0[0]}")
+    return row
+
+
 def ssd_min_flops(L: int, P: int, N: int) -> int:
     """The fewest FLOPs one head's scan of L steps takes: the chunked form
     at its cheapest chunk length q (the kernel's own q = 64 costs more; q = 1
@@ -902,6 +1022,11 @@ def check_served(result: dict, arch: str, kernels: tuple[str, ...], tag: str) ->
         fail(f"{tag}: bf16 prefill took the CUDA-core flash variant")
     return {"launches": launches, "server": result["server"], "decode_tokens": decode_tokens,
             "wall_s": result["wall_s"]}
+
+
+def whole_tensor(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def reset_counters() -> None:
@@ -1548,7 +1673,9 @@ def des_phase(dev, flush) -> dict:
     profile_des(routed, dev)
     return dict(kernel=kernel, launches=launches, plan=plan, routed=routed, shape=shape,
                 cols=cols, records=record_columns(full["sim"]), stats=full["stats"],
-                wall_s=full["wall_s"])
+                wall_s=full["wall_s"],
+                cross=dict(cols=short, records=a, stats=on_card["stats"],
+                           wall_s=on_card["wall_s"]))
 
 
 def device_activities(prof) -> dict:
@@ -1741,17 +1868,19 @@ def grid_phase(dev, flush, des: dict) -> dict:
 
 
 def telemetry_phase(dev, des: dict) -> dict:
-    """``[telemetry]``: the routed Table-2 fleet of ``[des]`` (10,000
-    requests) again, with windows of ``TELEMETRY["window"]`` dispatched
-    requests: its records must equal ``[des]``'s routed run bit for bit,
-    with the same rounds and host syncs; its export must validate and its
-    windowed deltas sum to the run's counters. Then the same fleet with its
+    """``[telemetry]``: the routed Table-2 fleet of ``[des]``'s
+    ``DES["cross"]``-request run again (the 10,000-request run's length put
+    the script near its time limit on a slow host), with windows of
+    ``TELEMETRY["window"]`` dispatched requests: its records must equal
+    that run's bit for bit, with the same rounds and host syncs; its export
+    must validate and its windowed deltas sum to the run's counters. Then the same fleet with its
     short pool cut to ``TELEMETRY["cut"]`` of its instances and an
     ``AdaptiveController`` over windows of ``TELEMETRY["control_window"]``,
     on ``TELEMETRY["cross"]`` requests on the card and on the CPU: every
     column and the controller's history must be equal."""
+    ref = des["cross"]
     decode_advance.launches = 0
-    run = run_des(des["routed"], des["cols"], dev, label="routed Table-2 fleet, telemetry",
+    run = run_des(des["routed"], ref["cols"], dev, label="routed Table-2 fleet, telemetry",
                   tag="telemetry", telemetry=TelemetryConfig(window=TELEMETRY["window"],
                                                              events=False))
     launches = decode_advance.launches
@@ -1760,7 +1889,7 @@ def telemetry_phase(dev, des: dict) -> dict:
         fail("sim_decode was never launched on the telemetry run")
     tel = res.telemetry
     doc = validate_telemetry(tel.to_json())
-    n = len(des["cols"])
+    n = len(ref["cols"])
     cols = tel.columns
     pools = list(tel.pool_names)
     for i in range(tel.num_samples):
@@ -1772,15 +1901,15 @@ def telemetry_phase(dev, des: dict) -> dict:
         check_window_deltas(tel, res)
     except ValueError as err:
         fail(f"telemetry: {err}")
-    if not same_records(record_columns(sim), des["records"]):
+    if not same_records(record_columns(sim), ref["records"]):
         fail("telemetry: the records differ from [des]'s routed run")
     for key in ("iters", "rounds", "host_syncs"):
-        if stats[key] != des["stats"][key]:
-            fail(f"telemetry: {key} {stats[key]} differs from [des]'s {des['stats'][key]}")
+        if stats[key] != ref["stats"][key]:
+            fail(f"telemetry: {key} {stats[key]} differs from [des]'s {ref['stats'][key]}")
     if doc["num_samples"] != n // TELEMETRY["window"] + 1:
         fail(f"telemetry: {doc['num_samples']} samples for {n} requests")
     print(f"[telemetry] routed Table-2 fleet, {n} requests, windows of {TELEMETRY['window']}: "
-          f"{tel.num_samples} samples, export valid; {wall:.2f} s wall ([des] {des['wall_s']:.2f} "
+          f"{tel.num_samples} samples, export valid; {wall:.2f} s wall ([des] {ref['wall_s']:.2f} "
           f"s without telemetry), iters {stats['iters']} rounds {stats['rounds']} host syncs "
           f"{stats['host_syncs']} (equal to [des]'s), sim_decode launches {launches}; records "
           f"bit-identical to [des]'s routed run", flush=True)
@@ -2474,9 +2603,6 @@ def decode_mesh_moe_phase(dev) -> dict:
     experts = {path: layout for path, layout in flatten_with_paths(placed)
                if path.endswith(("['w_up']", "['w_gate']", "['w_down']")) and "moe" in path}
 
-    def full(t):
-        return t.full_tensor() if hasattr(t, "full_tensor") else t
-
     def run(on_mesh: bool) -> dict:
         p = distribute_tree(params, placed) if on_mesh else params
         cache = model.init_cache(cell, device=dev)
@@ -2495,7 +2621,7 @@ def decode_mesh_moe_phase(dev) -> dict:
             logits, pre = model.prefill(p, inputs({"tokens": prompts}, prefill_cell))
             for c, t in zip(cache, pre):
                 c[:, :, :kw["prompt"]].copy_(t)
-            tok = full(logits).argmax(-1).to(torch.int32)
+            tok = whole_tensor(logits).argmax(-1).to(torch.int32)
             reset_counters()
             for i in range(kw["steps"]):
                 torch.cuda.synchronize()
@@ -2504,7 +2630,7 @@ def decode_mesh_moe_phase(dev) -> dict:
                                    device=dev)
                 logits, cache = model.decode_step(
                     p, cache, inputs({"tokens": tok[:, None], "index": index}, cell))
-                tok = full(logits).argmax(-1).to(torch.int32)
+                tok = whole_tensor(logits).argmax(-1).to(torch.int32)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t1)
                 tokens.append(tok)
@@ -2555,6 +2681,169 @@ def decode_mesh_moe_phase(dev) -> dict:
     if expert_gathers or moved:
         fail(f"[decode-mesh-moe] expert weights gathered {expert_gathers} or moved {moved}")
     return dict(mesh_ms=mesh_ms, plain_ms=plain_ms, launches=on_mesh["paged"])
+
+
+def train_mesh_xlstm_run(dev) -> dict:
+    """``[train-mesh-xlstm]``'s mesh side, on the ``[mesh]`` phase's group:
+    ``launch.train.train`` on xlstm-350m (MESH_TRAIN_XLSTM) on DTensors over
+    the one-rank mesh, no checkpoint written. The plain side runs once
+    ``[train-mesh]`` has destroyed the group (``train_mesh_xlstm_phase``)."""
+    kw = MESH_TRAIN_XLSTM
+    cfg = cut_config(XLSTM, kw["layers"], "train-mesh-xlstm")
+    with tempfile.TemporaryDirectory() as d:
+        out = train(cfg, ckpt_dir=d, ckpt_every=None, model_parallel=1, **_xlstm_run(dev))
+    out["cfg"] = cfg
+    return out
+
+
+def _xlstm_run(dev) -> dict:
+    kw = MESH_TRAIN_XLSTM
+    return dict(steps=kw["steps"], seq_len=kw["seq"], global_batch=kw["batch"], device=dev,
+                log_every=1000)
+
+
+def train_mesh_xlstm_phase(dev, mesh: dict) -> dict:
+    """``[train-mesh-xlstm]``: the plain side (no process group), the same
+    steps from the same seed, then the gate: each loss within ``loss_rtol``
+    of the plain path's (bit-equality printed: at one rank the reordered
+    up-projection is the plain product). Prints both sides' last step
+    time. The xLSTM's cells are plain PyTorch on both sides (its reference
+    has no Pallas kernel)."""
+    t0 = time.perf_counter()
+    kw = MESH_TRAIN_XLSTM
+    with tempfile.TemporaryDirectory() as d:
+        plain = train(mesh["cfg"], ckpt_dir=d, ckpt_every=None, **_xlstm_run(dev))
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"], plain["losses"])]
+    bit_equal = mesh["losses"] == plain["losses"]
+    mesh_ms, plain_ms = (1e3 * r["step_s"][-1] for r in (mesh, plain))
+    print(f"[train-mesh-xlstm] losses on the mesh {mesh['losses']}, on plain tensors "
+          f"{plain['losses']}: largest relative difference {max(rel):.3g} (limit "
+          f"{kw['loss_rtol']}), bit-equal {bit_equal}", flush=True)
+    print(f"[train-mesh-xlstm] step {mesh_ms:.1f} ms on DTensors against {plain_ms:.1f} ms on "
+          f"plain tensors ({mesh_ms / plain_ms:.2f}x; step {kw['steps'] - 1}, B {kw['batch']} x "
+          f"L {kw['seq']}, remat full, no checkpoint written, host clock; each step's seconds: "
+          f"mesh {[round(t, 4) for t in mesh['step_s']]}, plain "
+          f"{[round(t, 4) for t in plain['step_s']]}); plain side "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if max(rel) > kw["loss_rtol"]:
+        fail(f"[train-mesh-xlstm] mesh losses {mesh['losses']} against plain {plain['losses']}")
+    return dict(mesh_ms=mesh_ms, plain_ms=plain_ms, max_rel=max(rel), bit_equal=bit_equal)
+
+
+def decode_mesh_embed_phase(dev) -> dict:
+    """``[decode-mesh-vlm-audio]``, on the ``[mesh]`` phase's group:
+    qwen2-vl-7b and musicgen-medium at full width with MESH_DECODE_EMBED's
+    layers; ``slots`` seeded prompts of ``prompt`` embeddings (qwen2-vl's
+    M-RoPE positions the prompt's index on all three streams, musicgen's
+    256 seeded memory embeddings) prefilled into the slot cache, then
+    ``steps`` decode steps of seeded embeddings, each step's greedy tokens
+    (every codebook's for musicgen) kept; on DTensors over the one-rank
+    mesh (the policy's placements; musicgen's self and cross caches laid
+    out along their sequence, ``kv_seq`` on the model axis, so its decode
+    runs the sequence-parallel path: the paged kernel with its lse on the
+    rank's positions and ``combine_partials`` over a group of one) and on
+    plain tensors, the launch counters set to 0 just before each side's
+    prefill and read after its last step. Gates: the tokens identical on
+    the two sides; flash and paged launched as often on both (musicgen's
+    counts hold its cross-attention's). Prints both step times."""
+    t0 = time.perf_counter()
+    kw = MESH_DECODE_EMBED
+    slots, n, steps = kw["slots"], kw["prompt"], kw["steps"]
+    mesh = make_host_mesh(model_parallel=1)
+    cell = ShapeCell("decode-mesh-vlm-audio", "decode", kw["c_max"], slots)
+    prefill_cell = ShapeCell("decode-mesh-vlm-audio", "prefill", n, slots)
+    out = {}
+    for arch in (VLM, AUDIO):
+        model = cut_model(arch, kw["layers"], "decode-mesh-vlm-audio")
+        cfg = model.cfg
+        params = model.init(0, device=dev)
+        policy = build_policy(cfg, cell, mesh)
+        rules, kv_shardable = policy.rules, policy.kv_heads_sharded
+        if cfg.cross_attention:  # as the 16-wide mesh, which 24 KV heads do not divide
+            rules = AxisRules(tuple((name, "model" if name == "kv_seq" else target)
+                                    for name, target in rules.rules))
+            kv_shardable = False
+        placed = tree_placements(model.axes(), mesh, rules)
+        cache_layout = tree_placements(model.cache_axes(cell, kv_shardable=kv_shardable), mesh,
+                                       rules)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        embeds = (torch.randn(slots, n + steps, cfg.d_model, generator=gen, device=dev)
+                  * 0.1).bfloat16()
+        memory = (torch.randn(slots, cfg.cross_mem_len, cfg.d_model, generator=gen, device=dev)
+                  * 0.1).bfloat16()
+
+        def batch_at(cols: slice, index=None) -> dict:
+            b = {"embeds": embeds[:, cols]}
+            if cfg.pos_type == "mrope":
+                pos = torch.arange(n + steps, device=dev, dtype=torch.int32)[cols]
+                b["positions"] = pos.expand(3, slots, -1).contiguous()
+            if index is None and cfg.cross_attention:
+                b["memory"] = memory
+            if index is not None:
+                b["index"] = index
+            return b
+
+        def run(on_mesh: bool) -> dict:
+            p = distribute_tree(params, placed) if on_mesh else params
+
+            def inputs(batch: dict, c: ShapeCell) -> dict:
+                if not on_mesh:
+                    return batch
+                axes = model.input_axes(c)
+                return distribute_tree(batch, tree_placements({k: axes[k] for k in batch}, mesh,
+                                                              rules))
+
+            tokens, walls = [], []
+            reset_counters()
+            with use_rules(rules), torch.no_grad():
+                logits, pre = model.prefill(p, inputs(batch_at(slice(0, n)), prefill_cell))
+                cache = model.init_cache(cell, device=dev)
+                for c, t in zip(cache, pre):
+                    c[:, :, :t.shape[2]].copy_(whole_tensor(t))
+                if on_mesh:
+                    cache = distribute_tree(cache, cache_layout)
+                placements = sorted({str(t.placements) for t in cache}) if on_mesh else None
+                for i in range(steps):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    index = torch.full((slots,), n + i, dtype=torch.int32, device=dev)
+                    logits, cache = model.decode_step(
+                        p, cache, inputs(batch_at(slice(n + i, n + i + 1), index), cell))
+                    tokens.append(whole_tensor(logits).argmax(-1))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t1)
+            res = dict(tokens=torch.stack(tokens).cpu(), walls=walls, placements=placements,
+                       launches=(flash_attention.launches, paged_attention.launches))
+            del p, cache
+            return res
+
+        on_mesh, plain = run(True), run(False)
+        same = torch.equal(on_mesh["tokens"], plain["tokens"])
+        mesh_ms, plain_ms = (1e3 * float(np.median(r["walls"][1:])) for r in (on_mesh, plain))
+        print(f"[decode-mesh-vlm-audio] {arch}: {slots} slots, prompts of {n} prefilled, {steps} "
+              f"greedy decode steps; cache placements on the mesh {on_mesh['placements']}; "
+              f"tokens {tuple(on_mesh['tokens'].shape)} identical on DTensors and plain tensors: "
+              f"{same}; (flash, paged) launches mesh {on_mesh['launches']}, plain "
+              f"{plain['launches']}", flush=True)
+        print(f"[decode-mesh-vlm-audio] {arch}: step {mesh_ms:.2f} ms on DTensors against "
+              f"{plain_ms:.2f} ms on plain tensors ({mesh_ms / plain_ms:.2f}x; median of steps "
+              f"1-{steps - 1}, host clock)", flush=True)
+        if not same:
+            fail(f"[decode-mesh-vlm-audio] {arch}: tokens differ: mesh "
+                 f"{on_mesh['tokens'].tolist()}, plain {plain['tokens'].tolist()}")
+        if on_mesh["launches"] != plain["launches"] or not all(plain["launches"]):
+            fail(f"[decode-mesh-vlm-audio] {arch}: launches mesh {on_mesh['launches']}, plain "
+                 f"{plain['launches']}")
+        if cfg.cross_attention and "Shard(dim=2)" not in " ".join(on_mesh["placements"]):
+            fail(f"[decode-mesh-vlm-audio] {arch}: caches not laid out along their sequence: "
+                 f"{on_mesh['placements']}")
+        out[arch] = dict(mesh_ms=mesh_ms, plain_ms=plain_ms, flash=on_mesh["launches"][0],
+                         paged=on_mesh["launches"][1])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[decode-mesh-vlm-audio] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def roofline_phase(trained: dict, trained_hybrid: dict, llama3: dict, smi: str) -> dict:
@@ -3103,6 +3392,8 @@ def main() -> None:
     paged80 = paged_phase(dev, flush, heads=hybrid_heads, tag=HYBRID)
     paged8 = paged_phase(dev, flush, heads=dense_heads, tag=f"{DENSE} int8", int8=True,
                          pools=POOLS + (LONG_POOL,))
+    paged_lse = paged_lse_phase(dev, flush, heads=dense_heads, tag=DENSE)
+    paged8_lse = paged_lse_phase(dev, flush, heads=dense_heads, tag=f"{DENSE} int8", int8=True)
     ssd_rows = ssd_phase(dev, flush)
     moe_cfg, scout_cfg = get_config(MOE), get_config(SCOUT)
     moe_heads = (moe_cfg.n_heads, moe_cfg.n_kv_heads, moe_cfg.head_dim)
@@ -3141,13 +3432,21 @@ def main() -> None:
     stamp("decode-mesh-moe")
     gc.collect()
     torch.cuda.empty_cache()
+    decoded_embed = decode_mesh_embed_phase(dev)
+    stamp("decode-mesh-vlm-audio")
+    xlstm_on_mesh = train_mesh_xlstm_run(dev)  # its plain side needs the group gone
+    stamp("train-mesh-xlstm (mesh side)")
+    gc.collect()
+    torch.cuda.empty_cache()
     hybrid_on_mesh = train_mesh_hybrid_run(dev)  # its plain side needs the group gone
     stamp("train-mesh-hybrid (mesh side)")
     train_mesh_phase(dev)
     stamp("train-mesh")
     trained_mesh_hybrid = train_mesh_hybrid_phase(dev, hybrid_on_mesh)
-    mesh_s = time.perf_counter() - t_mesh
     stamp("train-mesh-hybrid")
+    train_mesh_xlstm_phase(dev, xlstm_on_mesh)
+    mesh_s = time.perf_counter() - t_mesh
+    stamp("train-mesh-xlstm")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3163,8 +3462,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    hybrid = serve_phase(HYBRID, ("flash_attention", "paged_attention", "ssd_scan"),
-                         "serve-hybrid")
+    hybrid = cut_serve_phase(dev, HYBRID, "serve-hybrid",
+                             ("flash_attention", "paged_attention", "ssd_scan"))
     profile_decode(hybrid["server"], "profile-hybrid")
     logits_check(hybrid["server"], "logits-hybrid")
     del hybrid["server"]
@@ -3188,8 +3487,8 @@ def main() -> None:
     t_roof = time.perf_counter()
     roofline_phase(trained, trained_hybrid, width_runs[LLAMA3], smi)
     dryrun_phase(*dryrun)
-    print(f"[time] [mesh], [decode-mesh-moe], [train-mesh], [train-mesh-hybrid], [roofline] "
-          f"and the wait for [dryrun] took "
+    print(f"[time] [mesh], [decode-mesh-moe], [decode-mesh-vlm-audio], [train-mesh], "
+          f"[train-mesh-hybrid], [train-mesh-xlstm], [roofline] and the wait for [dryrun] took "
           f"{mesh_s + time.perf_counter() - t_roof:.1f} s together", flush=True)
     stamp("roofline and dryrun")
     embed_runs = new_model_phases(dev, stamp)
@@ -3222,21 +3521,23 @@ def main() -> None:
     flash_rep = "src/repro/kernels/flash_attention.py:96"
     paged_rep = "src/repro/kernels/paged_attention.py:96"
     h_launch = hybrid["launches"]
+    hybrid_serve = (f"serve {HYBRID} ({CUT_LAYERS[HYBRID]} of {get_config(HYBRID).n_layers} "
+                    f"Mamba-2 blocks)")
     kernels = [
         entry("flash_attention", flash_src, flash_rep, f"serve {DENSE}",
               served_launches["flash_attention"], flash_rows[256], "H=32 K=4 D=128 L=256"),
-        entry("flash_attention_d80", flash_src, flash_rep, f"serve {HYBRID}",
+        entry("flash_attention_d80", flash_src, flash_rep, hybrid_serve,
               h_launch["flash_attention"], flash80[256], "H=32 K=32 D=80 L=256"),
         entry("paged_attention", paged_src, paged_rep, f"serve {DENSE}",
               served_launches["paged_attention"], paged_rows["short"],
               "8 slots x 512, H=32 K=4 D=128, bf16 pages"),
-        entry("paged_attention_d80", paged_src, paged_rep, f"serve {HYBRID}",
+        entry("paged_attention_d80", paged_src, paged_rep, hybrid_serve,
               h_launch["paged_attention"], paged80["short"],
               "8 slots x 512, H=32 K=32 D=80, bf16 pages"),
         entry("paged_attention_int8", paged_src, "src/repro/kernels/paged_attention.py:69",
               f"serve {DENSE} kv_dtype=int8", int8_launches["paged_attention"],
               paged8["short"], "8 slots x 512, H=32 K=4 D=128, int8 pages, f16 scales"),
-        entry("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:91", f"serve {HYBRID}",
+        entry("ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:91", hybrid_serve,
               h_launch["ssd_scan"], ssd_rows[256], "B=1 H=80 P=64 N=64 L=256"),
         entry("sim_decode", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
               "DES routed Table-2 fleet", des["launches"], des["kernel"],
@@ -3270,8 +3571,23 @@ def main() -> None:
         k["launches_by_path"] = {g5_paths[SCOUT]: scout["launches"][name],
                                  g5_paths[MAVERICK]: maverick["launches"][name]}
     kernels += embed_entries(entry, embed_rows, embed_runs)
+    # [decode-mesh-vlm-audio]'s launches (the mesh side's; the plain side's
+    # are equal by its gate) beside each row's own path: qwen2-vl's on its
+    # G 7 rows, musicgen's (self and cross attention together, its decode
+    # on sequence-sharded caches) on its D 64 rows
+    for arch, names in ((VLM, ("g7",)), (AUDIO, ("d64", "cross"))):
+        mesh_path = (f"prefill and decode {arch} ({MESH_DECODE_EMBED['layers']} of "
+                     f"{get_config(arch).n_layers} layers) on DTensors over a one-rank NCCL mesh, "
+                     f"{MESH_DECODE_EMBED['slots']} slots, {MESH_DECODE_EMBED['steps']} steps"
+                     + (", caches sharded along their sequence" if arch == AUDIO else ""))
+        for k in kernels:
+            if k["name"].endswith(names) and k["name"].startswith(("flash", "paged")):
+                run = decoded_embed[arch]["flash" if k["name"].startswith("flash") else "paged"]
+                k["launches_by_path"] = {k["path"]: k["launches"], mesh_path: run}
     kernels += width_entries(entry, width_rows, width_runs)
     kernels[4]["dequant_ms"] = paged8["short"]["dequant_ms"]
+    for k, row in ((kernels[2], paged_lse), (kernels[4], paged8_lse)):
+        k.update(lse_ms=row["lse_ms"], no_lse_ms=row["ms"], lse_err=row["lse_err"])
     for k, row in zip(kernels[:6] + kernels[8:],
                       (flash_rows[256], flash80[256], paged_rows["short"], paged80["short"],
                        paged8["short"], ssd_rows[256], flash_g16[256], paged_g16["short"],
@@ -3307,7 +3623,8 @@ def main() -> None:
         "variant", "group", "ctas", "split_ms", "fwd_ms", "fwd_states_ms")})
     kernels.append(
         entry("sim_decode_telemetry", "sim_decode.cu", "src/repro/kernels/sim_decode.py:243",
-              f"DES routed Table-2 fleet, telemetry windows of {TELEMETRY['window']}",
+              f"DES routed Table-2 fleet, {DES['cross']} requests, telemetry windows of "
+              f"{TELEMETRY['window']}",
               telemetry["launches"], des["kernel"], f"(G, P, I, S) = {des['kernel']['shape']}"))
     kernels.append(
         entry("paged_attention_int8_g16", paged_src, "src/repro/kernels/paged_attention.py:69",

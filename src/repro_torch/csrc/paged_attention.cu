@@ -61,6 +61,11 @@
 //     warp's positions, so one V load feeds 64 FMAs. Full MHA (zamba2,
 //     G = 1) compiles with one head's registers; a KV head with more than 8
 //     query heads spreads them over CTAs.
+//   * The log-sum-exp, where the caller asks for it (a non-null lse): the
+//     cluster's combine already forms each head's max m and denominator l
+//     over all shares; the first CTA writes m + log l (f32, the scaled-score
+//     units), -inf where no position is valid. A sequence-sharded cache's
+//     shards merge their partial outputs with it.
 //   * What bounds it now: at G = 8 the f32 products on the CUDA cores. A
 //     tile costs a CTA about as long as its bytes take to arrive, so a long
 //     sequence on few (sequence, KV head) pairs runs below the card's byte
@@ -70,6 +75,7 @@
 // stream; returns the cudaError_t of the launch (0 on success).
 
 #include <cooperative_groups.h>
+#include <math_constants.h>
 
 #include <type_traits>
 
@@ -145,7 +151,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const TS* __restrict__ v_scales,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ lengths, TQ* __restrict__ o,
-                       int H, int KH, int page, int pps, float scale) {
+                       float* __restrict__ lse, int H, int KH, int page,
+                       int pps, float scale) {
   using P = Paged<TKV, D>;
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int STAGES = P::STAGES;
@@ -463,6 +470,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float inv = 1.f / fmaxf(l_all, 1e-30f);
 #pragma unroll
     for (int r = 0; r < kMaxSplit; ++r) wgt[r * GMAX + tid] = mv[r] * inv;
+    if (lse != nullptr && split == 0)  // no valid position: l_all = 0
+      lse[(size_t)b * H + (size_t)kvh * G + g0 + tid] =
+          l_all > 0.f ? m_all + logf(l_all) : -CUDART_INF_F;
   }
   __syncthreads();
   const float* parts[kMaxSplit];
@@ -489,6 +499,7 @@ struct Args {
   const void *q, *kp, *vp, *ks, *vs;
   const int *bt, *lengths;
   void* o;
+  float* lse;
   int B, H, KH, page, pps, splits;
   float scale;
   cudaStream_t stream;
@@ -529,7 +540,7 @@ cudaError_t launch(const Args& a) {
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kp),
       static_cast<const TKV*>(a.vp), static_cast<const TS*>(a.ks),
       static_cast<const TS*>(a.vs), a.bt, a.lengths, static_cast<TQ*>(a.o),
-      a.H, a.KH, a.page, a.pps, a.scale);
+      a.lse, a.H, a.KH, a.page, a.pps, a.scale);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -569,15 +580,16 @@ cudaError_t dispatch_kv(const Args& a, int D, int kv_dtype, int scale_dtype) {
 }  // namespace
 
 // dtypes: 0 = float32, 1 = bfloat16, 2 = int8 (pages) or float16 (scales).
-// q (B,H,D) and o like q; pages (P,page,KH,D); for int8 pages the scales
-// (P,page,KH,1), else null; block_tables (B,pps) and lengths (B,) int32;
-// all contiguous. splits: CTAs (one cluster) per (sequence, KV head), 1-8.
+// q (B,H,D) and o like q; lse (B,H) f32, or null for none; pages
+// (P,page,KH,D); for int8 pages the scales (P,page,KH,1), else null;
+// block_tables (B,pps) and lengths (B,) int32; all contiguous. splits: CTAs
+// (one cluster) per (sequence, KV head), 1-8.
 extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
                                    const void* v_pages, const void* k_scales,
                                    const void* v_scales,
                                    const void* block_tables,
-                                   const void* lengths, void* o, int B,
-                                   int H, int KH, int D, int page, int pps,
+                                   const void* lengths, void* o, void* lse,
+                                   int B, int H, int KH, int D, int page, int pps,
                                    int splits, float scale, int q_dtype,
                                    int kv_dtype, int scale_dtype,
                                    void* stream) {
@@ -587,7 +599,8 @@ extern "C" int paged_attention_fwd(const void* q, const void* k_pages,
     return (int)cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, k_scales, v_scales,
                static_cast<const int*>(block_tables),
-               static_cast<const int*>(lengths), o, B, H, KH, page, pps,
+               static_cast<const int*>(lengths), o, static_cast<float*>(lse),
+               B, H, KH, page, pps,
                splits, scale, static_cast<cudaStream_t>(stream)};
   if (q_dtype == 0) return (int)dispatch_kv<float>(a, D, kv_dtype, scale_dtype);
   if (q_dtype == 1) return (int)dispatch_kv<__nv_bfloat16>(a, D, kv_dtype, scale_dtype);

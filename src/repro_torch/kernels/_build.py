@@ -55,9 +55,9 @@ SIGNATURES = {
     "paged_attention": (
         "paged_attention_fwd",
         # q, k_pages, v_pages, k_scales, v_scales, block_tables, lengths, o,
-        # B, H, KH, D, page, pps, splits, scale, q_dtype, kv_dtype,
-        # scale_dtype, stream
-        [_P] * 8 + [_I] * 7 + [_F, _I, _I, _I, _P],
+        # lse (null: none), B, H, KH, D, page, pps, splits, scale, q_dtype,
+        # kv_dtype, scale_dtype, stream
+        [_P] * 9 + [_I] * 7 + [_F, _I, _I, _I, _P],
     ),
     "ssd_scan": (
         "ssd_scan_fwd",

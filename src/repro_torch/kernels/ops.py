@@ -26,10 +26,13 @@ Attention also takes DTensors (the dense family's sharded path): the call
 runs on each rank's local shards through ``local_map``, so the kernels
 (their plain versions on CPU or meta tensors) see plain tensors. The batch
 and head dimensions may be sharded or replicated; any other sharded
-dimension is redistributed to replicated first (the ``kv_seq`` decode
-cache, gathered whole for the paged kernel). Where the query heads are
-sharded and the KV heads replicated (KV heads that do not divide the mesh
-axis), each rank takes the KV heads its query heads read, and their
+dimension is redistributed to replicated first. A decode cache sharded
+along its sequence (``kv_seq``) is the exception, and is not gathered:
+:func:`slot_decode_attention` runs the paged kernel on each rank's own
+positions and merges the ranks' partial outputs by their log-sum-exps (one
+all-reduce of the max, one of the weighted sums). Where the query heads
+are sharded and the KV heads replicated (KV heads that do not divide the
+mesh axis), each rank takes the KV heads its query heads read, and their
 gradient is a partial sum over the ranks. :func:`write_slot` writes a
 decode step's K/V (or int8 K/V and their scales) into a cache shard,
 sequence-sharded ones included. The SSD scan takes DTensors too (the
@@ -41,9 +44,11 @@ partial sum over the ranks.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
@@ -160,12 +165,12 @@ def flash_attention(
 
 @functools.lru_cache(maxsize=32)
 def slot_block_table(
-    n_slots: int, c_max: int, device: torch.device
+    n_slots: int, c_max: int, device: torch.device, page: int = PAGE
 ) -> torch.Tensor:
-    """Block table of the slot-cache page view: ``bt[b, j] = b*(c_max/16)+j``."""
-    if c_max % PAGE:
-        raise ValueError(f"c_max={c_max} must be a multiple of {PAGE}")
-    pps = c_max // PAGE
+    """Block table of the slot-cache page view: ``bt[b, j] = b*(c_max/page)+j``."""
+    if c_max % page:
+        raise ValueError(f"c_max={c_max} must be a multiple of {page}")
+    pps = c_max // page
     return torch.arange(n_slots * pps, dtype=torch.int32, device=device).view(
         n_slots, pps
     )
@@ -180,25 +185,83 @@ def slot_decode_attention(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Decode attention over one layer's slot cache, as pages; (B, 1, H, D).
-    DTensors run on their local shards (a sequence-sharded cache gathered
-    whole)."""
+    DTensors run on their local shards; a cache sharded along its
+    sequence runs :func:`_on_sequence_shards`."""
     if isinstance(q, DTensor):
         kv = (k_cache, v_cache) + ((k_scale, v_scale) if k_scale is not None else ())
+        if Shard(1) in k_cache.placements:
+            return _on_sequence_shards(q, kv, lengths)
         return _on_shards(
             lambda q_l, *rest: slot_decode_attention(q_l, *rest[:2], rest[-1], *rest[2:-1]),
             q, kv, (lengths,),
         )
-    b, s, n_kv, d = k_cache.shape
-    bt = slot_block_table(b, s, k_cache.device)
+    out = _paged_over_slots(q[:, 0], k_cache, v_cache, lengths, k_scale, v_scale)
+    return out[:, None]
+
+
+def _paged_over_slots(q, k_cache, v_cache, lengths, k_scale=None, v_scale=None, *,
+                      page: int = PAGE, return_lse: bool = False):
+    """The paged kernel on q (B, H, D) over a slot cache (B, S, K, D)
+    viewed as pages of ``page`` positions."""
+    b, s, n_kv, _ = k_cache.shape
+    bt = slot_block_table(b, s, k_cache.device, page)
 
     def pages(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        return None if t is None else t.view(b * s // PAGE, PAGE, n_kv, t.shape[-1])
+        return None if t is None else t.view(b * s // page, page, n_kv, t.shape[-1])
 
-    out = _paged.paged_attention(
-        q[:, 0], pages(k_cache), pages(v_cache), bt, lengths,
-        pages(k_scale), pages(v_scale),
-    )
-    return out[:, None]
+    return _paged.paged_attention(q, pages(k_cache), pages(v_cache), bt, lengths,
+                                  pages(k_scale), pages(v_scale), return_lse=return_lse)
+
+
+def _seq_offset(mesh, seq_dims: list, s_local: int) -> int:
+    """The first position of this rank's shard of a sequence sharded over
+    the mesh dims ``seq_dims`` (DTensor nests the shards of one dim in mesh
+    order)."""
+    offset = 0
+    for i in seq_dims:
+        offset = offset * mesh.size(i) + mesh.get_local_rank(i)
+    return offset * s_local
+
+
+def _on_sequence_shards(q: DTensor, kv: tuple, lengths: DTensor) -> DTensor:
+    """Decode attention over a cache sharded along its sequence (dim 1 of
+    (B, S, K, D); its batch may shard too, its heads not): q's heads are
+    gathered over the sequence's mesh dims (q is one token a slot), each
+    rank runs the paged kernel in f32 on its own positions (its local
+    length ``clamp(length - offset, 0, S_local)``), and
+    :func:`~repro_torch.kernels.paged_attention.combine_partials` merges the
+    ranks' outputs by their log-sum-exps through two all-reduces over those
+    mesh dims; the output, cast once to q's dtype, is laid out as q."""
+    cache = kv[0]
+    mesh = cache.device_mesh
+    seq_dims = [i for i, p in enumerate(cache.placements) if p == Shard(1)]
+    if any(p not in (Shard(0), Shard(1), Replicate()) for p in cache.placements):
+        raise ValueError(f"a sequence-sharded cache placed {cache.placements}: its heads "
+                         "cannot shard too")
+    q_pl = tuple(p if p == Shard(0) else Replicate() for p in cache.placements)
+
+    def reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+        for i in seq_dims:
+            x = funcol.all_reduce(x, op, (mesh, i))
+        return x
+
+    def local(q_l, *rest):
+        kv_l, len_l = rest[:-1], rest[-1]
+        s_local = kv_l[0].shape[1]
+        offset = _seq_offset(mesh, seq_dims, s_local)
+        len_l = (len_l - offset).clamp(0, s_local).to(torch.int32)
+        # a shard shorter than a page, or not a whole number of pages,
+        # takes smaller pages
+        o, lse = _paged_over_slots(q_l[:, 0].float(), *kv_l[:2], len_l, *kv_l[2:],
+                                   page=math.gcd(s_local, PAGE), return_lse=True)
+        out, _ = _paged.combine_partials(o, lse, reduce)
+        return out[:, None].to(q_l.dtype)
+
+    out = local_map(local, out_placements=list(q_pl),
+                    in_placements=(q_pl, *(t.placements for t in kv), q_pl),
+                    device_mesh=mesh)(q.redistribute(mesh, q_pl), *kv,
+                                      lengths.redistribute(mesh, q_pl))
+    return out.redistribute(mesh, q.placements)
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
@@ -231,13 +294,10 @@ def write_slot(cache: torch.Tensor, new: torch.Tensor, rows: torch.Tensor,
     w_pl = tuple(p if p == Shard(0) else Replicate() for p in cache.placements)
     seq_dims = [i for i, p in enumerate(cache.placements) if p == Shard(1)]
     local = cache.to_local()
-    offset = 0
-    for i in seq_dims:  # DTensor nests the shards of one dim in mesh order
-        offset = offset * mesh.size(i) + mesh.get_local_rank(i)
     _write_rows(local, new.redistribute(mesh, new_pl).to_local(),
                 torch.arange(local.shape[0], device=local.device),
-                write.redistribute(mesh, w_pl).to_local(), offset * local.shape[1],
-                bool(seq_dims))
+                write.redistribute(mesh, w_pl).to_local(),
+                _seq_offset(mesh, seq_dims, local.shape[1]), bool(seq_dims))
 
 
 def ssd_scan(

@@ -5,9 +5,11 @@ Counterpart of ``repro.kernels.paged_attention.paged_attention_pallas``:
 one query token per sequence ``(B, H, D)`` against a page pool
 ``(P, page, K, D)`` reached through an int32 block table ``(B, pps)``;
 positions at or past ``lengths`` are masked, and the kernel never loads
-them. Online softmax in f32, output in q's dtype. Pages are bf16 or f32,
-or int8 with one scale per (position, head), ``(P, page, K, 1)`` in f16 or
-f32. The plain version dequantizes each int8 value in f32 (``value *
+them. Online softmax in f32, output in q's dtype; where asked, also each
+row's log-sum-exp, f32 ``(B, H)``: the log of its softmax denominator in
+the scaled-score units (−inf, and an output of 0, for a row of length 0).
+Pages are bf16 or f32, or int8 with one scale per (position, head),
+``(P, page, K, 1)`` in f16 or f32. The plain version dequantizes each int8 value in f32 (``value *
 scale``), as the TPU kernel does after its page read; the kernel applies
 the same f32 scales per position, K's to the dot product and V's to the
 probability.
@@ -18,7 +20,9 @@ partial softmax states in the same launch; a CTA serves up to eight query
 heads of its KV head.
 
 :func:`paged_attention` launches the kernel on CUDA tensors and runs
-:func:`paged_attention_plain` on CPU tensors.
+:func:`paged_attention_plain` on CPU tensors. :func:`combine_partials`
+merges the outputs and log-sum-exps of disjoint sets of positions (the
+shards of a sequence-sharded cache) into the whole set's.
 """
 
 from __future__ import annotations
@@ -52,9 +56,12 @@ def paged_attention_plain(
     lengths: torch.Tensor,  # (B,) int32
     k_scales: Optional[torch.Tensor] = None,  # (P, page, K, 1) for int8 pages
     v_scales: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    *,
+    return_lse: bool = False,
+):
     """Gathers each sequence's pages (dequantized in f32 where they are
-    int8) and runs masked softmax in f32."""
+    int8) and runs masked softmax in f32. A row of length 0 gives 0 (and
+    an lse of −inf). With ``return_lse``: (out, lse (B, H) f32)."""
     b, h, d = q.shape
     _, page, n_kv, _ = k_pages.shape
     pps = block_tables.shape[1]
@@ -74,9 +81,28 @@ def paged_attention_plain(
     pos = torch.arange(pps * page, device=q.device)
     valid = pos[None, :] < lengths.to(q.device)[:, None]
     s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, vg)
-    return o.reshape(b, h, d).to(q.dtype)
+    # a row with no valid position would be softmax's 0/0: it gives 0
+    p = torch.softmax(s, dim=-1).masked_fill(~valid.any(-1)[:, None, None, None], 0.0)
+    o = torch.einsum("bkgs,bskd->bkgd", p, vg).reshape(b, h, d).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, h)
+    return o
+
+
+def combine_partials(out: torch.Tensor, lse: torch.Tensor, reduce) -> tuple:
+    """The attention output and log-sum-exp over the union of disjoint sets
+    of positions, from each set's: ``out`` (..., H, D) f32 and ``lse``
+    (..., H); ``reduce(x, op)`` reduces ``x`` over the sets, ``op`` "max"
+    or "sum" (a max over a stacked leading axis, or an all-reduce over
+    the ranks that hold a sequence's shards). Each set weighs exp(lse −
+    max lse); sets of no position (lse −inf) weigh 0, and a row with no
+    position in any set gives 0 and −inf. One "max" and one "sum" (the
+    weighted outputs and the weights together) → (out, lse), f32."""
+    m = reduce(lse, "max")
+    w = torch.exp(lse - torch.where(torch.isfinite(m), m, torch.zeros_like(m)))
+    tot = reduce(torch.cat([out * w[..., None], w[..., None]], dim=-1), "sum")
+    num, den = tot[..., :-1], tot[..., -1:]
+    return torch.where(den > 0, num / den, torch.zeros_like(num)), m + torch.log(den[..., 0])
 
 
 @functools.lru_cache(maxsize=16)
@@ -163,15 +189,20 @@ def paged_attention(
     lengths: torch.Tensor,
     k_scales: Optional[torch.Tensor] = None,
     v_scales: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    *,
+    return_lse: bool = False,
+):
     """Decode attention over pages: the kernel on CUDA, the plain version
     on the CPU. Block-table entries are trusted to name pages of the pool;
-    a length past ``pps * page`` counts as ``pps * page``. Decode has no
+    a length past ``pps * page`` counts as ``pps * page``. With
+    ``return_lse``: (out, lse (B, H) f32), the kernel writing the lse
+    where its cluster combines its shares. Decode has no
     backward kernel: on CUDA inputs that require grad, with grad mode on,
     it raises rather than return an output with no gradient."""
     if q.device.type in ("cpu", "meta"):  # meta: shapes only, as the dry run runs it
         return paged_attention_plain(
-            q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales
+            q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales,
+            return_lse=return_lse,
         )
     refuse_grad("paged_attention (decode attention's backward kernel)",
                 q, k_pages, v_pages, k_scales, v_scales)
@@ -182,12 +213,14 @@ def paged_attention(
     splits = split_count(b, h, n_kv, pps * page, _sm_count(q.device))
     quant = k_pages.dtype == torch.int8
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     fn = _build.kernel_fn("paged_attention")
     code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None,
         v_scales.data_ptr() if quant else None,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         b, h, n_kv, d, page, pps, splits, 1.0 / math.sqrt(d),
         DTYPE_CODES[q.dtype], PAGE_CODES[k_pages.dtype],
         SCALE_CODES[k_scales.dtype] if quant else 0,
@@ -195,7 +228,7 @@ def paged_attention(
     )
     _build.check("paged_attention", code)
     paged_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: Kernel launches since the last reset (plain-version calls not counted).

@@ -11,19 +11,13 @@ Adafactor above :data:`ADAFACTOR_THRESHOLD` parameters), the decode cache
 * the bytes each rank holds, for each of these and in total, from the
   local shapes, and whether they fit ``mem_util`` x ``hbm_bytes`` of an
   H100 (``fits``);
-* for the dense, MoE and hybrid families (yi-6b, granite-3-8b,
-  granite-34b, gemma-2b, llama3-70b; qwen3-235b-a22b, llama4-scout,
-  llama4-maverick; zamba2-2.7b), the collectives the cell's step issues
-  (train step, prefill or decode step, run on the meta DTensors under
+* the collectives the cell's step issues (train step, prefill or decode
+  step, run on the meta DTensors under
   :class:`~repro_torch.launch.comm_count.CommCounter`), and the roofline on
   :data:`~repro_torch.core.cost_model.H100_SXM` from the analytic cost and
   those collectives (causal attention counted as the triangle the flash
   kernel computes), with ``useful_flops_fraction``, the model FLOPs (6 N D
   or 2 N D) over that count; status ``"ok"``;
-* for the xLSTM (``ssm``), vlm and audio families (xlstm-350m,
-  qwen2-vl-7b, musicgen-medium) status ``"shape_only"``: the step does not
-  run on DTensors yet (ROADMAP A20), so the collective term is null (not
-  zero), and the compute and memory terms stand alone;
 * status ``"skipped"`` where ``shape_applicable`` rules the cell out.
 
 ``--remat {full,dots,none}`` (default full) and ``--kv-dtype {bf16,int8}``
@@ -65,7 +59,6 @@ from repro_torch.launch.comm_count import CommCounter
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.policy import build_policy, pure_dp_policy
 from repro_torch.launch.roofline import Roofline, model_flops_estimate
-from repro_torch.launch.train import SHARDED_FAMILIES
 from repro_torch.models.model_zoo import KV_DTYPES, STATE_FAMILIES, Model
 from repro_torch.models.remat import REMAT_MODES
 from repro_torch.training.train_loop import (
@@ -122,8 +115,8 @@ def run_cell(
     kv_dtype: str = "bf16",
     out_dir: str = RESULTS_DIR,
 ) -> dict:
-    """Place and (dense, MoE and hybrid families) step one cell; returns its
-    record, also saved as JSON under ``out_dir``."""
+    """Place and step one cell; returns its record, also saved as JSON
+    under ``out_dir``."""
     cfg = get_config(arch)
     cell = SHAPES_BY_NAME[shape]
     record: dict = {"arch": arch, "shape": shape, "mesh": MESHES[multi_pod], "status": "error"}
@@ -172,19 +165,17 @@ def run_cell(
     held["total"] = sum(held.values())
     t_place = time.perf_counter()
 
-    colls = None
-    if cfg.family in SHARDED_FAMILIES:  # the others are placed shape-only (A20)
-        with use_rules(rules), CommCounter() as counter:
-            if cell.kind == "train":
-                step_fn, _ = make_train_step(model, tcfg)
-                step_fn(params, opt_state, batch, 0)
-            else:
-                with torch.no_grad():
-                    if cell.kind == "prefill":
-                        model.prefill(params, batch)
-                    else:
-                        model.decode_step(params, cache, batch)
-        colls = counter.stats()
+    with use_rules(rules), CommCounter() as counter:
+        if cell.kind == "train":
+            step_fn, _ = make_train_step(model, tcfg)
+            step_fn(params, opt_state, batch, 0)
+        else:
+            with torch.no_grad():
+                if cell.kind == "prefill":
+                    model.prefill(params, batch)
+                else:
+                    model.decode_step(params, cache, batch)
+    colls = counter.stats()
     t_step = time.perf_counter()
 
     acost = cell_cost(
@@ -195,15 +186,13 @@ def run_cell(
     roof = Roofline(
         flops_total=acost.flops_total,
         bytes_total=acost.hbm_bytes,
-        collective_bytes_per_chip=0.0 if colls is None else colls.wire_bytes_per_chip,
+        collective_bytes_per_chip=colls.wire_bytes_per_chip,
         chips=chips,
         hw=H100_SXM,
     ).as_dict()
-    if colls is None:  # not measured: no term, and no dominant term either
-        roof.update(collective_s=None, collective_bytes_per_chip=None, dominant=None)
     budget = H100_SXM.mem_util * H100_SXM.hbm_bytes
     record.update(
-        status="shape_only" if colls is None else "ok",
+        status="ok",
         chips=chips,
         params=model.param_count(),
         policy=policy.describe(),
@@ -213,7 +202,7 @@ def run_cell(
         hbm_budget_bytes=budget,
         fits=held["total"] <= budget,
         analytic_cost=acost.as_dict(),
-        collectives=None if colls is None else {
+        collectives={
             "counts": colls.counts,
             "wire_bytes_per_chip": colls.wire_bytes_per_chip,
             "by_op": colls.by_op,
@@ -235,22 +224,18 @@ def _save(record: dict, out_dir: str) -> None:
 
 
 def summary(rec: dict) -> str:
-    """One line for a record: per-rank bytes, fits and the three terms; a
-    ``shape_only`` record's collective term is null (its family's step
-    does not run on DTensors yet, ROADMAP A20)."""
+    """One line for a record: per-rank bytes, fits and the three terms."""
     head = f"[{rec['status']}] {rec['arch']} x {rec['shape']} x {rec['mesh']}"
-    if rec["status"] not in ("ok", "shape_only"):
+    if rec["status"] != "ok":
         return head
     variant = rec["variant"]
     if (variant["remat"], variant["kv_dtype"]) != ("full", "bf16"):
         head += f" (remat {variant['remat']}, kv {variant['kv_dtype']})"
     r, gb = rec["roofline"], rec["bytes_per_rank"]["total"] / 1e9
-    coll = ("null (step not run: A20)" if r["collective_s"] is None
-            else f"{r['collective_s'] * 1e3:.3f} ms")
     return (f"{head}: {gb:.3f} GB a rank (fits {rec['fits']}), compute "
             f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
-            f"collective {coll}, dominant {r['dominant']}, useful_flops_fraction "
-            f"{rec['useful_flops_fraction']:.4f}")
+            f"collective {r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}, "
+            f"useful_flops_fraction {rec['useful_flops_fraction']:.4f}")
 
 
 def main() -> None:

@@ -17,10 +17,9 @@ builds the largest ``(data, model)`` mesh over the world, ``model_parallel``
 wide on the model axis (``--model-parallel``); the parameters and the
 optimizer state are placed by the sharding policy over ``Model.axes()``
 and ``opt_state_axes``, the batch is sharded over the data axis, and a
-resume restores the checkpoint onto that mesh (``placements=``). The
-dense, MoE and hybrid families run sharded; the xLSTM (``ssm``), vlm and
-audio families are refused (ROADMAP A20 queues them). Without a process
-group, training runs on one device as before.
+resume restores the checkpoint onto that mesh (``placements=``). Every
+family runs sharded. Without a process group, training runs on one device
+as before.
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch zamba2-2.7b \
         --model-parallel 2 --device cpu
@@ -52,10 +51,6 @@ from repro_torch.training import (
     make_train_step,
     opt_state_axes,
 )
-
-#: Families whose training step runs on DTensors.
-SHARDED_FAMILIES = ("dense", "moe", "hybrid")
-
 
 def _scalar(t) -> float:
     return float(t.full_tensor() if isinstance(t, DTensor) else t)
@@ -105,15 +100,10 @@ def train(
     timer = StepTimer()
 
     params, opt_state = init_train_state(model, tcfg, 0, device=dev)
+    cell = ShapeCell("train", "train", seq_len, global_batch)
     placed, sharding_rules = None, contextlib.nullcontext()
     if dist.is_initialized():
-        if cfg.family not in SHARDED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family does not train on a mesh yet "
-                "(ROADMAP A20); run without a process group"
-            )
         mesh = elastic_mesh(model_parallel=model_parallel, device_type=dev.type)
-        cell = ShapeCell("train", "train", seq_len, global_batch)
         policy = build_policy(cfg, cell, mesh)
         placed = {"p": tree_placements(model.axes(), mesh, policy.rules),
                   "o": tree_placements(opt_state_axes(model, tcfg), mesh, policy.rules),
@@ -132,12 +122,12 @@ def train(
         params, opt_state = state["p"], state["o"]
         print(f"[train] resumed from step {start} (loss {meta.get('loss')})")
 
+    specs = model.input_specs(cell)
+
     def batch_at(i: int) -> dict:
-        batch = batch_fn(i)
-        if placed is None:
-            return batch
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        return distribute_tree(batch, placed["b"])
+        batch = {k: torch.as_tensor(v, device=dev).to(specs[k].dtype)
+                 for k, v in batch_fn(i).items()}
+        return batch if placed is None else distribute_tree(batch, placed["b"])
 
     losses = []
     try:

@@ -7,6 +7,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.distributed.sharding import constrain, replicate_like
 
@@ -40,9 +42,37 @@ def codebook_logits(
     *,
     valid_vocab: Optional[int] = None,
 ) -> torch.Tensor:
-    """MusicGen's multi-codebook heads: (B, L, D) x (K, D, V) → (B, L, K, V)."""
-    logits = torch.einsum("bld,kdv->blkv", hidden, heads)
+    """MusicGen's multi-codebook heads: (B, L, D) x (K, D, V) → (B, L, K, V).
+    DTensors run the product on each rank's shards (its batch rows, its
+    vocab columns): DTensor's own einsum flattens (K, V) with V sharded,
+    which some versions refuse."""
+    if isinstance(heads, DTensor):
+        logits = _codebooks_on_shards(hidden, heads)
+    else:
+        logits = torch.einsum("bld,kdv->blkv", hidden, heads)
     return constrain(_mask_padded(logits, valid_vocab), ("batch", None, None, "vocab"))
+
+
+def _codebooks_on_shards(hidden: DTensor, heads: DTensor) -> DTensor:
+    """The codebook product through ``local_map``: on a mesh dim that shards
+    the heads' vocab the hidden states are whole and their gradient a
+    partial sum; on one that shards the hidden states' batch the heads are
+    whole and their gradient a partial sum."""
+    mesh = heads.device_mesh
+    h_pl, w_pl, out_pl, hg_pl, wg_pl = [], [], [], [], []
+    for hp, wp in zip(hidden.placements, heads.placements):
+        if wp == Shard(2):
+            pls = (Replicate(), wp, Shard(3), Partial(), wp)
+        elif hp == Shard(0):
+            pls = (hp, Replicate(), hp, hp, Partial())
+        else:
+            pls = (Replicate(),) * 5
+        for acc, pl in zip((h_pl, w_pl, out_pl, hg_pl, wg_pl), pls):
+            acc.append(pl)
+    return local_map(lambda h, w: torch.einsum("bld,kdv->blkv", h, w), out_placements=out_pl,
+                     in_placements=(tuple(h_pl), tuple(w_pl)),
+                     in_grad_placements=(tuple(hg_pl), tuple(wg_pl)), device_mesh=mesh)(
+        hidden.redistribute(mesh, h_pl), heads.redistribute(mesh, w_pl))
 
 
 def softmax_xent(

@@ -105,10 +105,9 @@ def mrope_angles(
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} must sum to {half}")
     exponents = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = 1.0 / (theta ** exponents)
-    stream = [i for i, n in enumerate(sections) for _ in range(n)]  # each pair's stream
-    pos = positions[stream].movedim(0, -1).float()  # (B, L, half)
-    ang = pos * freqs
+    freqs = replicate_like(1.0 / (theta ** exponents), positions).split(list(sections))
+    # each section's pairs driven by its own stream: (B, L, half)
+    ang = torch.cat([positions[i].float()[..., None] * f for i, f in enumerate(freqs)], dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 

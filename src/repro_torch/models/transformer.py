@@ -313,7 +313,7 @@ def _cross_attention(x, p, memory_kv, cfg: ArchConfig, lengths=None):
         o = flash_attention(q, mk, mv, causal=False)
     else:
         o = decode_attention(q, mk, mv, lengths)
-    return x + _out_proj(o, p["cross_w_o"])
+    return residual(x, _out_proj(o, p["cross_w_o"]))
 
 
 def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool, group: int, capacity_factor: float):
@@ -334,7 +334,7 @@ def _ffn_sublayer(x, p, cfg: ArchConfig, is_moe: bool, group: int, capacity_fact
 
 def _embed_input(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     if cfg.frontend != "tokens":
-        return batch["embeds"]
+        return constrain(batch["embeds"], ("batch", None, "embed"))
     x = embed_lookup(batch["tokens"].long(), params["embed"])
     if cfg.tie_embeddings:  # gemma-style sqrt(d) scaling
         x = x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt().to(x.device)
@@ -474,8 +474,8 @@ def decode_step(
     write = index.clamp(max=k_all.shape[2] - 1)
     rows = torch.arange(b, device=x.device)
     if cfg.cross_attention:
-        mem_lengths = torch.full((b,), caches[n_self].shape[2], dtype=torch.int32,
-                                 device=x.device)
+        mem_lengths = replicate_like(torch.full((b,), caches[n_self].shape[2],
+                                                dtype=torch.int32, device=x.device), x)
     for i, (p, is_moe) in enumerate(_layers(params)):
         layer = [c[i] for c in caches]
         x = _self_attention_decode(x, p, cos, sin, cfg, layer[:n_self], rows, write, lengths)

@@ -27,6 +27,17 @@ masked to −inf before the exp, never multiplied by a 0/1 mask.
 sLSTM keeps per-head-channel scalar state with block-diagonal recurrent
 weights, which forces a sequential loop over positions (the reference's
 ``lax.scan``).
+
+On DTensors (the sharded path) the blocks shard as the reference lays
+them out: the up-projections and ``skip`` on "ffn", the per-head weights
+on "heads" (replicated where the heads do not divide the model axis). The
+mLSTM and sLSTM recurrences, independent per (sequence, head), run on each
+rank's local shards (:func:`~repro_torch.kernels.ops.on_head_shards`), so
+their loops dispatch plain tensor ops and their constants stay plain; the
+gate preactivations, which read the whole up-projection, are reduced onto
+the heads' shards first. Each block's output is a partial sum over the
+model axis that the residual reduces
+(:func:`~repro_torch.models.layers.residual`).
 """
 
 from __future__ import annotations
@@ -36,8 +47,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models.layers import rms_norm
+from repro_torch.distributed.sharding import constrain
+from repro_torch.kernels.ops import on_head_shards
+from repro_torch.models.layers import residual, rms_norm
 from repro_torch.models.params import ParamDef
 
 GATE_CAP = 5.0
@@ -162,6 +176,10 @@ def slstm_scan(
     -10), as the reference does. Returns (h (B, L, H, D) in z_pre's dtype,
     the final (c, n, h, m) in f32)."""
     bsz, length, h, d = z_pre.shape
+    if z_pre.device.type == "meta":  # shapes only, as the dry run runs it
+        out = _SLSTMShapes.apply(z_pre, i_pre, f_pre, o_pre, r_z, r_i, r_f, r_o,
+                                 *(initial_state or ()))
+        return out[0], out[1:]
     if initial_state is None:
         zeros = torch.zeros(bsz, h, d, dtype=torch.float32, device=z_pre.device)
         c, n, h_prev, m = zeros, zeros + 1e-6, zeros, zeros - 10.0
@@ -185,6 +203,24 @@ def slstm_scan(
         m = m_new
         hs.append(h_prev)
     return torch.stack(hs, dim=1).to(z_pre.dtype), (c, n, h_prev, m)
+
+
+class _SLSTMShapes(torch.autograd.Function):
+    """:func:`slstm_scan`'s outputs and its inputs' gradients as meta
+    tensors of their shapes and dtypes, without the loop (one position at
+    a time, it would dispatch every op of every position on meta tensors:
+    minutes for a 4,096-token dry-run cell)."""
+
+    @staticmethod
+    def forward(ctx, z_pre, *rest):
+        ctx.like = (z_pre, *rest)
+        bsz, _, h, d = z_pre.shape
+        state = tuple(z_pre.new_empty((bsz, h, d), dtype=torch.float32) for _ in range(4))
+        return (torch.empty_like(z_pre), *state)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return tuple(torch.empty_like(t) for t in ctx.like)
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +269,85 @@ def slstm_block_defs(d_model: int, n_heads: int) -> dict:
     }
 
 
+#: The logical axes of a block's per-head activations (B, L, H, D), of
+#: its gate preactivations (B, L, H) or a (B, L, H·D) activation laid out
+#: by head, and of its up-projected (B, L, d_in) activations.
+_HEADS = ("batch", None, "heads", None)
+_BY_HEAD = ("batch", None, "heads")
+_FFN = ("batch", None, "ffn")
+
+
+def _up_halves(xn: torch.Tensor, w_up: torch.Tensor) -> tuple:
+    """The up-projection's two column halves (u, z), each (B, L, d_in).
+    Plain tensors split the product. On DTensors each half is sharded on
+    "ffn", which a rank's shard of the product is not (it holds columns of
+    u or of z), so something is gathered. Where the tokens outnumber
+    d_model (a prefill or training pass, where the product is the larger)
+    it is the weight: its columns are reordered so that each rank's shard
+    holds its own u columns and then its own z columns, and one product a
+    rank splits locally (at one rank, the plain product). Else (a decode
+    step) it is the product."""
+    if not isinstance(w_up, DTensor) or Shard(1) not in w_up.placements:
+        return (xn @ w_up).chunk(2, dim=-1)
+    d, d_in = w_up.shape[0], w_up.shape[1] // 2
+    if xn.numel() // xn.shape[-1] < d:
+        up = xn @ w_up
+        return tuple(constrain(t, _FFN) for t in (up[..., :d_in], up[..., d_in:]))
+    mesh = w_up.device_mesh
+    ranks = math.prod(mesh.size(i) for i, p in enumerate(w_up.placements) if p == Shard(1))
+    whole = w_up.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                     for p in w_up.placements])
+    cols = (whole[:, :d_in].view(d, ranks, -1), whole[:, d_in:].view(d, ranks, -1))
+    w = constrain(torch.stack(cols, dim=2).reshape(d, 2 * d_in), ("embed", "ffn"))
+    up = (xn @ w).unflatten(-1, (ranks, 2, -1))
+    return tuple(constrain(up[..., i, :].flatten(-2), _FFN) for i in (0, 1))
+
+
+def _mlstm_heads(uh, w_q, w_k, w_v, i_pre, f_pre, state, *, step: bool, chunk: int):
+    """The per-head q/k/v projections of ``uh`` (B, L, H, hd) and the mLSTM
+    recurrence (``step``: L = 1, one token from ``state``) → (h (B, L, H,
+    Dv), (C, n)). DTensors run on each rank's (sequence, head) shards, the
+    projection weights' gradient a partial sum over the sequence shards."""
+    if isinstance(uh, DTensor):
+        st = tuple(state or ())
+
+        def local(*a):
+            h, (c, n) = _mlstm_heads(*a[:6], a[6:] or None, step=step, chunk=chunk)
+            return h, c, n
+
+        h, c, n = on_head_shards(local, (uh, w_q, w_k, w_v, i_pre, f_pre, *st),
+                                 ((0, 2),) + ((None, 0),) * 3 + ((0, 2),) * 2
+                                 + ((0, 1),) * len(st),
+                                 ((0, 2), (0, 1), (0, 1)))
+        return h, (c, n)
+    q = torch.einsum("blhe,hed->blhd", uh, w_q)
+    k = torch.einsum("blhe,hed->blhd", uh, w_k)
+    v = torch.einsum("blhe,hed->blhd", uh, w_v)
+    if step:
+        h, state = mlstm_step(q[:, 0], k[:, 0], v[:, 0], i_pre[:, 0], f_pre[:, 0], state)
+        return h[:, None], state
+    return mlstm_chunked(q, k, v, i_pre, f_pre, chunk=chunk, initial_state=state)
+
+
+def _slstm_cell(pre: list, recs: list, state):
+    """:func:`slstm_scan` of the four preactivations (B, L, H, D) and
+    recurrent weights (H, D, D); DTensors run on each rank's (sequence,
+    head) shards, the recurrent weights' gradient a partial sum over the
+    sequence shards."""
+    if isinstance(pre[0], DTensor):
+        st = tuple(state or ())
+
+        def local(*a):
+            h, new = slstm_scan(*a[:8], initial_state=a[8:] or None)
+            return (h, *new)
+
+        h, *new = on_head_shards(local, (*pre, *recs, *st),
+                                 ((0, 2),) * 4 + ((None, 0),) * 4 + ((0, 1),) * len(st),
+                                 ((0, 2),) + ((0, 1),) * 4)
+        return h, tuple(new)
+    return slstm_scan(*pre, *recs, initial_state=state)
+
+
 def mlstm_block(
     x: torch.Tensor,
     params: dict,
@@ -248,22 +363,19 @@ def mlstm_block(
     d_in = params["skip"].shape[0]
     hd = d_in // n_heads
     xn = rms_norm(x, params["norm"])
-    u, zgate = (xn @ params["w_up"]).chunk(2, dim=-1)
-    uh = u.reshape(bsz, length, n_heads, hd)
-    q = torch.einsum("blhe,hed->blhd", uh, params["w_q"])
-    k = torch.einsum("blhe,hed->blhd", uh, params["w_k"])
-    v = torch.einsum("blhe,hed->blhd", uh, params["w_v"])
-    ip = u @ params["w_i"]
-    fp = u @ params["w_f"] + params["f_bias"]
-    if step:
-        h, state = mlstm_step(q[:, 0], k[:, 0], v[:, 0], ip[:, 0], fp[:, 0], initial_state)
-        h = h[:, None]
-    else:
-        h, state = mlstm_chunked(q, k, v, ip, fp, chunk=chunk, initial_state=initial_state)
-    h = h.reshape(bsz, length, d_in)
+    u, zgate = _up_halves(xn, params["w_up"])
+    # u's "ffn" shards are not whole heads where the heads do not divide
+    # the model axis: lay it out by head first
+    uh = constrain(u, _BY_HEAD).reshape(bsz, length, n_heads, hd)
+    ip = constrain(u @ params["w_i"], _BY_HEAD)
+    fp = constrain(u @ params["w_f"] + params["f_bias"], _BY_HEAD)
+    h, state = _mlstm_heads(uh, params["w_q"], params["w_k"], params["w_v"], ip, fp,
+                            initial_state, step=step, chunk=chunk)
+    # by head, then on "ffn": the gradient reaches the reshape by head too
+    h = constrain(constrain(h.reshape(bsz, length, d_in), _BY_HEAD), _FFN)
     h = h + u * params["skip"].to(h.dtype)
     h = h * F.silu(zgate)
-    return x + h @ params["w_down"], state
+    return residual(x, h @ params["w_down"]), state
 
 
 def slstm_block(x: torch.Tensor, params: dict, *, n_heads: int, initial_state=None):
@@ -271,14 +383,13 @@ def slstm_block(x: torch.Tensor, params: dict, *, n_heads: int, initial_state=No
     bsz, length, d = x.shape
     xn = rms_norm(x, params["norm"])
     pre = [
-        (xn @ params[f"w_{g}"].reshape(d, -1)).view(bsz, length, *params[f"w_{g}"].shape[1:])
+        constrain((xn @ params[f"w_{g}"].reshape(d, -1))
+                  .view(bsz, length, *params[f"w_{g}"].shape[1:]), _HEADS)
         for g in ("z", "i", "f", "o")
     ]
-    h, state = slstm_scan(
-        *pre, params["r_z"], params["r_i"], params["r_f"], params["r_o"],
-        initial_state=initial_state,
-    )
-    y = x + h.reshape(bsz, length, d) @ params["w_o_proj"]
+    h, state = _slstm_cell(pre, [params[f"r_{g}"] for g in ("z", "i", "f", "o")],
+                           initial_state)
+    y = residual(x, h.reshape(bsz, length, d) @ params["w_o_proj"])
     yn = rms_norm(y, params["mlp_norm"])
     hidden = F.gelu(yn @ params["w_mlp_up"], approximate="tanh")  # jax.nn.gelu's default
-    return y + hidden @ params["w_mlp_down"], state
+    return residual(y, constrain(hidden, _FFN) @ params["w_mlp_down"]), state

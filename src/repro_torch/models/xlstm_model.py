@@ -12,6 +12,12 @@ all f32, as the reference's prefill returns it. ``decode_step`` writes
 every new state into those tensors in place (the serving engine keeps the
 cache it gave and drops what the step returns) and ignores
 ``batch["index"]``.
+
+On DTensors the embedding is vocab-parallel
+(:func:`~repro_torch.models.layers.embed_lookup`) and laid out as the
+reference constrains it, and the blocks shard as :mod:`xlstm` says. The
+decode state keeps its heads whole on every rank (the reference's cache
+rule), so each rank steps its own heads and writes them back whole.
 """
 
 from __future__ import annotations
@@ -19,10 +25,12 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import heads as heads_lib
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import embed_lookup, rms_norm
 from repro_torch.models.params import ParamDef, stack_tree
 from repro_torch.models.remat import remat as remat_layer
 from repro_torch.models.xlstm import (
@@ -57,6 +65,18 @@ def _index(tree: dict, *idx: int) -> dict:
     return {k: v[idx] for k, v in tree.items()}
 
 
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return constrain(embed_lookup(tokens.long(), params["embed"]), ("batch", None, "embed"))
+
+
+def _write(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, a DTensor ``src`` laid out as ``dst`` first (a
+    state whose heads shard on the step's ranks goes back whole)."""
+    if isinstance(src, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
+
+
 def _run(params: dict, cfg: ArchConfig, x: torch.Tensor, states: Optional[dict] = None):
     """Every group over ``x``. Without ``states``: the whole sequence from
     the reference's initial states → (x, the decode state). With
@@ -73,8 +93,8 @@ def _run(params: dict, cfg: ArchConfig, x: torch.Tensor, states: Optional[dict] 
                 m_c.append(c)
                 m_n.append(n)
             else:
-                st[0].copy_(c)
-                st[1].copy_(n)
+                _write(st[0], c)
+                _write(st[1], n)
         st = None if states is None else tuple(t[g] for t in states["slstm"])
         x, new = slstm_block(x, _index(params["slstm"], g), n_heads=cfg.n_heads,
                              initial_state=st)
@@ -82,7 +102,7 @@ def _run(params: dict, cfg: ArchConfig, x: torch.Tensor, states: Optional[dict] 
             s_leaves.append(new)
         else:
             for dst, src in zip(st, new):
-                dst.copy_(src)
+                _write(dst, src)
     if states is not None:
         return x, states
     groups = n_groups(cfg)
@@ -111,7 +131,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, remat: str = "none"
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward → (logits (B, L, V), aux loss 0). ``remat``
     checkpoints each group, as the reference's ``_group_scan`` does."""
-    x = params["embed"][batch["tokens"].long()]
+    x = _embed(params, batch["tokens"])
     for g in range(n_groups(cfg)):
         x = remat_layer(lambda h, g=g: _group_full(h, g, params, cfg), remat)(x)
     return _finish(params, cfg, x), torch.zeros((), device=x.device)
@@ -129,13 +149,13 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict, *, remat: str = "none", 
 def prefill(params: dict, cfg: ArchConfig, batch: dict) -> tuple[torch.Tensor, dict]:
     """Prefill of unpadded prompts, any length → (last-position logits (B,
     V), decode state)."""
-    x, states = _run(params, cfg, params["embed"][batch["tokens"].long()])
+    x, states = _run(params, cfg, _embed(params, batch["tokens"]))
     return _finish(params, cfg, x[:, -1:])[:, 0], states
 
 
 def decode_step(params: dict, cfg: ArchConfig, states: dict, batch: dict) -> tuple[torch.Tensor, Any]:
     """One token a sequence; ``states`` are updated in place and returned."""
-    x, states = _run(params, cfg, params["embed"][batch["tokens"].long()], states)
+    x, states = _run(params, cfg, _embed(params, batch["tokens"]), states)
     return _finish(params, cfg, x)[:, 0], states
 
 

@@ -9,6 +9,10 @@ sharding takes disjoint slices of the global batch by process index.
 The generator synthesizes structured sequences (repeated n-gram motifs over
 a Zipfian vocabulary) rather than iid noise so a ~100M model shows a real
 learning curve in examples/port_train_small.py.
+
+:class:`EmbeddingsFrontend` is the port's own: it makes the inputs of the
+configs whose model takes embeddings (qwen2-vl, musicgen) from the token
+stream, which the reference's launcher does not (it trains neither).
 """
 
 from __future__ import annotations
@@ -67,10 +71,57 @@ class SyntheticLM:
         return {"tokens": tokens, "labels": labels}
 
 
+class EmbeddingsFrontend:
+    """The embeddings frontend's inputs from a token batch: each token's row
+    of a fixed seeded table of std 0.1 (``rows`` rows, the token id modulo
+    that, values rounded to bfloat16's 8 significant bits), M-RoPE's
+    positions (each position's index on all three streams), a conditioning
+    memory of std 0.1 seeded by the batch index, and the labels, one column
+    a codebook (codebook k's: the next token plus k, modulo the
+    vocabulary). Arrays are float32 and int32; the caller casts them to the
+    model's input dtypes."""
+
+    rows = 4096
+
+    def __init__(self, cfg: ArchConfig, seed: int = 0) -> None:
+        self.cfg, self.seed = cfg, seed
+        rng = np.random.default_rng((seed, 0xE3BED5))
+        self.table = _bf16_values(rng.normal(size=(min(cfg.vocab, self.rows), cfg.d_model)) * 0.1)
+
+    def __call__(self, batch: dict, index: int) -> dict:
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        b, length = tokens.shape
+        out = {"embeds": self.table[tokens % len(self.table)]}
+        if cfg.pos_type == "mrope":
+            out["positions"] = np.broadcast_to(np.arange(length, dtype=np.int32),
+                                               (3, b, length)).copy()
+        if cfg.cross_attention:
+            rng = np.random.default_rng((self.seed, index, 0xC0DE))
+            out["memory"] = _bf16_values(rng.normal(size=(b, cfg.cross_mem_len, cfg.d_model)) * 0.1)
+        if cfg.n_codebooks:
+            shift = np.arange(cfg.n_codebooks, dtype=np.int64)
+            labels = ((labels[..., None].astype(np.int64) + shift) % cfg.vocab).astype(np.int32)
+        out["labels"] = labels
+        return out
+
+
+def _bf16_values(x: np.ndarray) -> np.ndarray:
+    """``x`` rounded to the nearest bfloat16 (ties to even), as float32."""
+    bits = x.astype(np.float32).view(np.uint32)
+    bits = bits + 0x7FFF + ((bits >> 16) & 1)
+    return (bits & 0xFFFF0000).view(np.float32)
+
+
 def make_batch_fn(cfg: ArchConfig, seq_len: int, global_batch: int, seed: int = 0):
+    """Batch ``index`` → the model's inputs: tokens and labels, or for the
+    embeddings frontend :class:`EmbeddingsFrontend`'s inputs from them."""
     data = SyntheticLM(
         DataConfig(
             vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch, seed=seed
         )
     )
-    return data.batch
+    if cfg.frontend == "tokens":
+        return data.batch
+    frontend = EmbeddingsFrontend(cfg, seed)
+    return lambda index, **kw: frontend(data.batch(index, **kw), index)

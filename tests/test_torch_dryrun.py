@@ -4,8 +4,7 @@ reference's HLO parse on the same collectives, the H100 constants, and
 ``python -m repro_torch.launch.dryrun`` over a fake process group (each run
 in a process of its own: a process has one default group, and the runs go
 side by side): yi-6b and zamba2 cells, an MoE cell on an int8 KV cache
-with ``--remat dots``, and xlstm-350m cells (shape only) with ``--remat
-none``.
+with ``--remat dots``, and xlstm-350m cells with ``--remat none``.
 """
 
 from __future__ import annotations
@@ -269,14 +268,18 @@ def test_skip_rule(dry_records):
 
 
 def test_other_families_are_shape_only(dry_records):
-    """The xLSTM's step does not run on DTensors yet (ROADMAP A20): its
-    cells are placed, their collective term null."""
+    """No family is shape-only any more: the xLSTM's cells run their step
+    on the meta DTensors (its sLSTM loop as shapes only) and count their
+    collectives, every roofline term set."""
     for shape in VARIANT_RUNS["none"][1]:
         rec = dry_records[2]["none"][("xlstm-350m", shape)]
-        assert rec["status"] == "shape_only"
-        assert rec["collectives"] is None and rec["roofline"]["collective_s"] is None
-        assert rec["roofline"]["dominant"] is None and rec["roofline"]["memory_s"] > 0
-        assert rec["bytes_per_rank"]["params"] > 0
+        assert rec["status"] == "ok"
+        colls = rec["collectives"]
+        assert sum(colls["counts"].values()) > 0 and colls["wire_bytes_per_chip"] > 0
+        assert rec["roofline"]["collective_s"] == pytest.approx(
+            colls["wire_bytes_per_chip"] / H100_SXM.ici_bw)
+        assert rec["roofline"]["dominant"] in ("compute", "memory", "collective")
+        assert rec["roofline"]["memory_s"] > 0 and rec["bytes_per_rank"]["params"] > 0
 
 
 @pytest.mark.parametrize("arch,shape", [("zamba2-2.7b", "train_4k"), ("zamba2-2.7b", "decode_32k"),

@@ -142,6 +142,97 @@ def test_paged_plain_ignores_unmapped_pages():
     np.testing.assert_allclose(out.numpy(), base.numpy(), atol=1e-4)
 
 
+def _lse_oracle(q, kp, bt, lengths, k_scales=None) -> np.ndarray:
+    """Each row's log-sum-exp of its scaled scores over its valid
+    positions, in f64 with numpy (-inf for a row of length 0)."""
+    qn, kn = q.double().numpy(), kp.double().numpy()
+    if k_scales is not None:
+        kn = kn * k_scales.double().numpy()
+    b, h, d = qn.shape
+    n_kv = kn.shape[2]
+    out = np.full((b, h), -np.inf)
+    for i in range(b):
+        keys = kn[bt[i]].reshape(-1, n_kv, d)[: int(lengths[i])]
+        for j in range(h):
+            s = keys[:, j // (h // n_kv)] @ qn[i, j] / math.sqrt(d)
+            if s.size:
+                out[i, j] = np.logaddexp.reduce(s)
+    return out
+
+
+@pytest.mark.parametrize("case", PAGED_CASES + ["int8"])
+def test_paged_plain_lse(case):
+    """``return_lse``: each row's log-sum-exp (f32, the scaled-score units)
+    against a numpy f64 oracle within 1e-4 (the sums of at most 128
+    unit-scale products in f32), bf16, f32 and int8 pages (the scale
+    applied to K); the output as without it, bit for bit."""
+    rng = np.random.default_rng(11)
+    scales = ()
+    if case == "int8":
+        B, H, K, D, page, pps = 3, 8, 2, 64, 16, 4
+        tq = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+        tkp, tvp = (torch.from_numpy(rng.integers(-127, 128, (B * pps, page, K, D)).astype(np.int8))
+                    for _ in range(2))
+        scales = tuple(torch.from_numpy(rng.uniform(0.005, 0.02, (B * pps, page, K, 1))
+                                        .astype(np.float16)) for _ in range(2))
+        bt = rng.permutation(B * pps).reshape(B, pps).astype(np.int32)
+    else:
+        B, H, K, D, page, pps, dtype, _ = case
+        _, (tq, tkp, tvp), bt = _paged_inputs(rng, B, H, K, D, page, pps, dtype, B * pps * 2)
+    lengths = rng.integers(1, pps * page + 1, size=(B,)).astype(np.int32)
+    args = (tq, tkp, tvp, torch.from_numpy(bt), torch.from_numpy(lengths), *scales)
+    out, lse = paged_attention_plain(*args, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, paged_attention_plain(*args))
+    want = _lse_oracle(tq, tkp, bt, lengths, scales[0] if scales else None)
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-4, rtol=0)
+
+
+def test_paged_plain_rows_of_length_zero():
+    """A row of length 0 (a sequence shard past a slot's length) gives an
+    output of 0 and an lse of -inf, with no NaN; the other rows are as they
+    are without it."""
+    rng = np.random.default_rng(12)
+    B, H, K, D, page, pps = 3, 4, 2, 32, 16, 2
+    _, (tq, tkp, tvp), bt = _paged_inputs(rng, B, H, K, D, page, pps, F32, B * pps)
+    lengths = torch.tensor([0, 17, 0], dtype=torch.int32)
+    out, lse = paged_attention_plain(tq, tkp, tvp, torch.from_numpy(bt), lengths,
+                                     return_lse=True)
+    assert not out.isnan().any() and not lse.isnan().any()
+    assert not out[[0, 2]].any() and torch.isneginf(lse[[0, 2]]).all()
+    alone, alone_lse = paged_attention_plain(tq[1:2], tkp, tvp, torch.from_numpy(bt[1:2]),
+                                             lengths[1:2], return_lse=True)
+    assert torch.equal(out[1:2], alone) and torch.equal(lse[1:2], alone_lse)
+
+
+def test_combine_partials_of_two_halves_is_the_whole():
+    """A cache cut into two halves by position: each half's output and lse
+    (local lengths clamp(length - offset, 0, half); a row inside the first
+    half has none in the second), merged by ``combine_partials``, equal
+    the whole cache's within 1e-6."""
+    from repro_torch.kernels.paged_attention import combine_partials
+
+    rng = np.random.default_rng(13)
+    B, S, H, K, D = 3, 64, 8, 2, 32
+    q = torch.from_numpy(rng.normal(size=(B, H, D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, K, D)).astype(np.float32)) for _ in range(2))
+    lengths = torch.tensor([64, 20, 33], dtype=torch.int32)
+    want, want_lse = ops._paged_over_slots(q, k, v, lengths, return_lse=True)
+    halves = [ops._paged_over_slots(q, k[:, i:i + S // 2].contiguous(),
+                                    v[:, i:i + S // 2].contiguous(),
+                                    (lengths - i).clamp(0, S // 2).int(), return_lse=True)
+              for i in (0, S // 2)]
+    assert torch.isneginf(halves[1][1][1]).all()
+
+    def stacked(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+
+    out, lse = combine_partials(torch.stack([h[0] for h in halves]),
+                                torch.stack([h[1] for h in halves]), stacked)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-6)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=1e-6)
+
+
 @pytest.mark.parametrize(
     "dtype,tol", [(F32, 2e-5), (BF16, 2e-2)], ids=["f32", "bf16"]
 )

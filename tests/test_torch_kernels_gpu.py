@@ -345,6 +345,85 @@ def test_int8_paged_kernel_matches_plain_and_skips_dead_pages(cuda, case):
     assert torch.equal(paged_attention(q, kp, vp, bt, lengths, ks, vs), out)
 
 
+#: The paged kernel's log-sum-exp: (B, H, K, D, q dtype, page dtype,
+#: lengths); one length 0 a case, ragged ones, a split boundary.
+LSE_CASES = [
+    (4, 8, 2, 64, torch.float32, torch.float32, [0, 1, 100, 512]),
+    (3, 32, 4, 128, torch.bfloat16, torch.bfloat16, [512, 0, 257]),
+    (2, 32, 4, 128, torch.float32, torch.bfloat16, [300, 0]),  # the sharded decode's f32 q
+    (3, 24, 24, 64, torch.float32, torch.int8, [0, 64, 511]),
+    (2, 8, 1, 256, torch.bfloat16, torch.int8, [17, 0]),
+]
+
+
+def _slot_cache(gen, B, S, K, D, kdt, device):
+    """A slot cache (k, v[, k_scale, v_scale]) of B x S positions."""
+    if kdt == torch.int8:
+        kv = [torch.randint(-127, 128, (B, S, K, D), generator=gen, device=device,
+                            dtype=torch.int8) for _ in range(2)]
+        return (*kv, *((torch.rand((B, S, K, 1), generator=gen, device=device) * 0.02 + 1e-3)
+                       .half() for _ in range(2)))
+    return tuple(_randn(gen, (B, S, K, D), kdt, device) for _ in range(2))
+
+
+@pytest.mark.parametrize("case", LSE_CASES)
+def test_paged_kernel_lse_matches_plain(cuda, case):
+    """``return_lse``: the kernel's log-sum-exp against the plain version's
+    (1e-4), the output bit for bit as without it; a row of length 0 gives
+    an output of 0 and an lse of -inf, no NaN."""
+    B, H, K, D, qdt, kdt, lens = case
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = _randn(gen, (B, H, D), qdt, cuda)
+    cache = _slot_cache(gen, B, 512, K, D, kdt, cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out, lse = ops._paged_over_slots(q, *cache[:2], lengths, *cache[2:], return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, ops._paged_over_slots(q, *cache[:2], lengths, *cache[2:]))
+    pages = [t.view(-1, ops.PAGE, K, t.shape[-1]) for t in cache]
+    bt = ops.slot_block_table(B, 512, cuda)
+    want_out, want = paged_attention_plain(q, *pages[:2], bt, lengths, *pages[2:],
+                                           return_lse=True)
+    empty = lengths == 0
+    assert not out.isnan().any() and not lse.isnan().any()
+    assert not out[empty].any() and torch.isneginf(lse[empty]).all()
+    torch.testing.assert_close(lse[~empty], want[~empty], atol=1e-4, rtol=0)
+    tol = 2e-5 if qdt == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kdt", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+def test_paged_kernel_two_shards_combine_to_the_whole(cuda, kdt):
+    """A slot cache cut into two shards by position (the sequence-sharded
+    decode's, local lengths clamp(length - offset, 0, S/2); one row inside
+    the first shard), each shard's kernel output and lse with q in f32,
+    merged by ``combine_partials``: the whole cache's kernel output within
+    2e-5 and its lse within 1e-4."""
+    from repro_torch.kernels.paged_attention import combine_partials
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, S, H, K, D = 4, 512, 32, 4, 128
+    q = _randn(gen, (B, H, D), torch.float32, cuda)
+    cache = _slot_cache(gen, B, S, K, D, kdt, cuda)
+    lengths = torch.tensor([512, 100, 256, 257], dtype=torch.int32, device=cuda)
+    want, want_lse = ops._paged_over_slots(q, *cache[:2], lengths, *cache[2:], return_lse=True)
+    parts = [ops._paged_over_slots(q, *(t[:, i:i + S // 2].contiguous() for t in cache[:2]),
+                                   (lengths - i).clamp(0, S // 2).to(torch.int32),
+                                   *(t[:, i:i + S // 2].contiguous() for t in cache[2:]),
+                                   return_lse=True)
+             for i in (0, S // 2)]
+    assert torch.isneginf(parts[1][1][1]).all()
+
+    def stacked(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+
+    out, lse = combine_partials(torch.stack([o for o, _ in parts]),
+                                torch.stack([l_ for _, l_ in parts]), stacked)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
 def _ssd_inputs(gen, B, L, H, P, N, xdt, bcdt, device):
     """Inputs as the model gives them: x already times dt, log_a = A * dt."""
     dt = torch.rand((B, H, L), generator=gen, device=device) * 0.19 + 0.01

@@ -2,7 +2,9 @@
 sharding policy, the PartitionSpec and the local shard shape of every
 parameter, optimizer-state and cache leaf on both production meshes, the
 shape-only surface (abstract parameters, axes, cache specs, optimizer
-state), and the dense transformer on DTensors over two gloo ranks.
+state), the dense transformer on DTensors over two gloo ranks (with the
+sequence-parallel decode on gemma-2b's sequence-sharded cache), and the
+training launcher on one-rank meshes.
 
 The reference's policy reads only a mesh's axis names and sizes, so both
 sides take stand-in meshes for the specs (as ``tests/test_launch.py``
@@ -438,6 +440,45 @@ def test_decode_on_a_sharded_cache_matches_one_process(mesh_runs, arch):
             worker.close(g, want, 2 ** -8, "cache")
 
 
+def test_sequence_sharded_decode_gathers_no_cache_layer(mesh_runs):
+    """gemma-2b's decode step on its sequence-sharded cache runs the paged
+    kernel on each rank's positions: its collectives (``CommCounter``)
+    hold all-reduces and no all-gather as large as one layer's K or V
+    leaf (q's heads are all that is gathered)."""
+    world2, _ = mesh_runs
+    cfg = get_config("gemma-2b").reduced()
+    layer = worker.DECODE.global_batch * worker.DECODE.seq_len * cfg.n_kv_heads * cfg.head_dim * 2
+    for got in world2:
+        records = got["gemma-2b/decode_records"]
+        assert any(op == "all-reduce" for op, _, _ in records)
+        gathers = [nbytes for op, nbytes, _ in records if op == "all-gather"]
+        assert all(nbytes < layer for nbytes in gathers), (gathers, layer)
+
+
+def test_partial_lse_combine_equals_the_unsharded_softmax(mesh_runs):
+    """Each rank's partial output and lse over its half of the sequence
+    (one slot has no position in the second half: lse -inf, output 0),
+    merged by ``combine_partials``, and the sharded path's output, equal
+    the softmax over the whole cache (the plain version, one process)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import combine_partials
+
+    world2, _ = mesh_runs
+    q, k, v, lengths = world2[0]["combine/inputs"]
+    want, want_lse = ops._paged_over_slots(q[:, 0], k, v, lengths, return_lse=True)
+    (o0, lse0), (o1, lse1) = (got["combine/partial"] for got in world2)
+    assert torch.isneginf(lse1[1]).all() and not o1[1].any()
+
+    def stacked(x, op):
+        return x.amax(0) if op == "max" else x.sum(0)
+
+    out, lse = combine_partials(torch.stack([o0, o1]), torch.stack([lse0, lse1]), stacked)
+    worker.close(out, want, 1e-6, "combined output")
+    worker.close(lse, want_lse, 1e-6, "combined lse")
+    for got in world2:
+        worker.close(got["combine/out"][:, 0], want, 1e-6, "sharded path")
+
+
 def test_cache_layouts(mesh_runs):
     """gemma-2b's one KV head cannot shard over the model axis, so its
     cache shards its sequence (``kv_seq``); yi-6b's shards its heads."""
@@ -472,16 +513,21 @@ def test_launcher_takes_a_config_as_it_is(tmp_path):
 
 
 def test_launcher_refuses_the_families_not_yet_sharded(tmp_path):
+    """No family is refused any more: ``train("xlstm-350m")`` on a one-rank
+    gloo group (the mesh path: DTensors, its mLSTM and sLSTM cells on their
+    one shard of heads) gives the plain launcher's losses."""
     import torch.distributed as dist
     from repro_torch.launch.train import train
 
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
                             world_size=1)
     try:
-        with pytest.raises(NotImplementedError, match="A20"):
-            train("xlstm-350m", ckpt_dir=str(tmp_path / "ck"), **worker.LAUNCH)
+        mesh = train("xlstm-350m", ckpt_dir=str(tmp_path / "mesh"), **worker.LAUNCH)
     finally:
         dist.destroy_process_group()
+    plain = train("xlstm-350m", ckpt_dir=str(tmp_path / "plain"), **worker.LAUNCH)
+    worker.close(torch.tensor(mesh["losses"]), torch.tensor(plain["losses"]), 1e-5,
+                 "launcher losses")
 
 
 def test_launcher_trains_the_hybrid_on_a_one_rank_mesh(tmp_path):

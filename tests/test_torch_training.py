@@ -353,3 +353,32 @@ def test_train_config_defaults_match_reference():
     assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(jtraining.TrainConfig())
     assert dataclasses.asdict(AdamW()) == dataclasses.asdict(jtraining.AdamW())
     assert dataclasses.asdict(Adafactor()) == dataclasses.asdict(jtraining.Adafactor())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "musicgen-medium"])
+def test_batches_of_the_embeddings_frontend(arch, tmp_path):
+    """The configs whose model takes embeddings get them from the token
+    stream (the reference's launcher feeds tokens only): every input of
+    ``Model.input_specs`` with its shape, bf16 values for the embeddings
+    and the memory, the same batch again for the same index, a codebook
+    label a column; and the launcher trains on them (finite losses)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.train import train
+
+    cfg = get_config(arch).reduced()
+    fn = make_batch_fn(cfg, 16, 2)
+    batch = fn(3)
+    specs = Model(cfg).input_specs(ShapeCell("t", "train", 16, 2))
+    assert batch.keys() == specs.keys()
+    for key, spec in specs.items():
+        assert batch[key].shape == tuple(spec.shape), key
+        np.testing.assert_array_equal(batch[key], fn(3)[key])
+    for key in ("embeds", "memory"):
+        if key in batch:
+            x = torch.from_numpy(batch[key])
+            assert torch.equal(x.bfloat16().float(), x) and 0.05 < x.std() < 0.2
+    if cfg.n_codebooks:
+        assert (batch["labels"][..., 1] == (batch["labels"][..., 0] + 1) % cfg.vocab).all()
+    run = train(arch, steps=2, seq_len=16, global_batch=2, device="cpu",
+                ckpt_dir=str(tmp_path), ckpt_every=None, log_every=100)
+    assert len(run["losses"]) == 2 and np.isfinite(run["losses"]).all()

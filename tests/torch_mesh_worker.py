@@ -7,17 +7,24 @@ to compare with its single-process runs.
         --init <file> --out <dir>
 
 ``world2`` (two ranks on a 1 x 2 mesh): the losses and gradients, and a
-decode step on a placed cache, of reduced yi-6b and gemma-2b with f32
-parameters; three AdamW steps of reduced yi-6b, a checkpoint, and the
-next step's loss. ``world1`` (one rank): that checkpoint restored onto a
-1 x 1 mesh through ``placements=`` and the next step's loss; the training
+decode step on a placed cache (and its collectives), of reduced yi-6b and
+gemma-2b with f32 parameters; decode attention over a sequence-sharded
+cache, each rank's partials and their combine; three AdamW steps of
+reduced yi-6b, a checkpoint, and the next step's loss. ``world1`` (one
+rank): that checkpoint restored onto a 1 x 1 mesh through
+``placements=`` and the next step's loss; the training
 launcher on the mesh. ``collectives`` (any world): two rounds of
 ``compressed_all_reduce`` over the world. ``families2`` (two ranks on a
 1 x 2 mesh): the MoE and hybrid families (reduced qwen3-235b-a22b, at
 ``moe_group`` 1 and the default, and zamba2-2.7b, f32 parameters): the
 loss and gradients, a decode step and a prefill; a decode step and a
 prefill on an int8 KV cache of yi-6b, gemma-2b and qwen3; the collectives
-one MoE layer's forward and backward issue.
+one MoE layer's forward and backward issue. ``families3`` (two ranks on a
+1 x 2 mesh): the xLSTM, vlm and audio families (reduced xlstm-350m, at a
+longer training batch, qwen2-vl-7b and musicgen-medium, f32 parameters):
+the loss and gradients, a decode step and a prefill; musicgen's decode
+step again with its caches laid out along their sequence on the model
+axis.
 """
 
 from __future__ import annotations
@@ -30,11 +37,19 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ShapeCell, get_config
 from repro_torch.distributed.collectives import compressed_all_reduce
-from repro_torch.distributed.sharding import distribute_tree, tree_placements, use_rules
+from repro_torch.distributed.sharding import (
+    AxisRules,
+    Layout,
+    distribute_tree,
+    tree_placements,
+    use_rules,
+)
+from repro_torch.kernels import ops
 from repro_torch.launch.comm_count import CommCounter
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.policy import build_policy
@@ -51,9 +66,16 @@ FAMILIES = {"qwen3-235b-a22b": ("qwen3-235b-a22b", {}),
             "qwen3-235b-a22b/group1": ("qwen3-235b-a22b", {"moe_group": 1}),
             "zamba2-2.7b": ("zamba2-2.7b", {})}
 INT8 = {f"{a}/int8": (a, {"kv_dtype": "int8"}) for a in ("yi-6b", "gemma-2b", "qwen3-235b-a22b")}
+#: ``families3``'s cases.
+FAMILIES3 = ("xlstm-350m", "qwen2-vl-7b", "musicgen-medium")
+#: musicgen's decode step on caches sharded along their sequence.
+KV_SEQ = "musicgen-medium/kv_seq"
 TRAIN = ShapeCell("mesh_train", "train", 16, 2)
+#: The xLSTM's training and prefill batch: enough tokens (B x L >= its
+#: reduced d_model) that its up-projection reorders the weight on
+#: DTensors; the decode step gathers the product instead.
+TRAIN_XLSTM = ShapeCell("mesh_train_xlstm", "train", 64, 2)
 DECODE = ShapeCell("mesh_decode", "decode", 32, 2)
-PREFILL = ShapeCell("mesh_prefill", "prefill", TRAIN.seq_len, TRAIN.global_batch)
 DECODE_INDEX = (20, 5)  # one position in each half of the 32-position cache
 CKPT_STEPS = 3
 TCFG = TrainConfig(total_steps=8, warmup_steps=1)
@@ -76,17 +98,47 @@ def f32_params(model: Model) -> dict:
     return params
 
 
+def train_cell(cfg) -> ShapeCell:
+    return TRAIN_XLSTM if cfg.family == "ssm" else TRAIN
+
+
+def bf16_values(rng, shape, scale: float = 0.1) -> torch.Tensor:
+    """Normal values of std ``scale`` rounded to bf16, held in f32."""
+    return torch.as_tensor(rng.normal(size=shape) * scale, dtype=torch.float32) \
+        .to(torch.bfloat16).float()
+
+
 def train_batch(cfg, seed: int = 0) -> dict:
+    """Tokens and next-token labels; for the embeddings frontend, embeddings
+    of std 0.1 (bf16 values), M-RoPE's arange positions, the conditioning
+    memory in bf16 and labels (one a codebook)."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, size=(TRAIN.global_batch, TRAIN.seq_len + 1))
-    return {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
-            "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
+    cell = train_cell(cfg)
+    b, length = cell.global_batch, cell.seq_len
+    if cfg.frontend == "tokens":
+        toks = rng.integers(0, cfg.vocab, size=(b, length + 1))
+        return {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32),
+                "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32)}
+    batch = {"embeds": bf16_values(rng, (b, length, cfg.d_model))}
+    if cfg.pos_type == "mrope":
+        batch["positions"] = torch.arange(length, dtype=torch.int32).expand(3, b, length).clone()
+    if cfg.cross_attention:
+        batch["memory"] = bf16_values(rng, (b, cfg.cross_mem_len, cfg.d_model)).bfloat16()
+    labels = (b, length, cfg.n_codebooks) if cfg.n_codebooks else (b, length)
+    batch["labels"] = torch.as_tensor(rng.integers(0, cfg.vocab, labels), dtype=torch.int32)
+    return batch
+
+
+def prompt_batch(cfg) -> dict:
+    """The training batch without its labels (a prefill's inputs)."""
+    return {k: v for k, v in train_batch(cfg).items() if k != "labels"}
 
 
 def decode_inputs(model: Model) -> tuple:
     """A cache of seeded values (int8 codes in [-127, 127] and f16 scales in
     [0.005, 0.02] for an int8 cache, normal values otherwise) and one decode
-    step's batch."""
+    step's batch (tokens, or embeddings and M-RoPE's positions, one column
+    a slot at its index)."""
     rng = np.random.default_rng(1)
 
     def draw(t: torch.Tensor) -> torch.Tensor:
@@ -97,9 +149,15 @@ def decode_inputs(model: Model) -> tuple:
         return torch.as_tensor(rng.normal(size=t.shape), dtype=torch.float32).to(t.dtype)
 
     cache = map_tree(draw, model.cache_specs(DECODE))
-    toks = rng.integers(0, model.cfg.vocab, size=(DECODE.global_batch, 1))
-    return cache, {"tokens": torch.as_tensor(toks, dtype=torch.int32),
-                   "index": torch.tensor(DECODE_INDEX, dtype=torch.int32)}
+    cfg = model.cfg
+    index = torch.tensor(DECODE_INDEX, dtype=torch.int32)
+    if cfg.frontend == "tokens":
+        toks = rng.integers(0, cfg.vocab, size=(DECODE.global_batch, 1))
+        return cache, {"tokens": torch.as_tensor(toks, dtype=torch.int32), "index": index}
+    batch = {"embeds": bf16_values(rng, (DECODE.global_batch, 1, cfg.d_model)), "index": index}
+    if cfg.pos_type == "mrope":
+        batch["positions"] = index[None, :, None].expand(3, -1, 1).clone()
+    return cache, batch
 
 
 def full(t: torch.Tensor) -> torch.Tensor:
@@ -107,10 +165,13 @@ def full(t: torch.Tensor) -> torch.Tensor:
 
 
 def model_case(mesh, arch: str, out: dict, tag: str = "", train: bool = True,
-               prefill: bool = False, **model_kw) -> None:
+               prefill: bool = False, kv_seq: bool = False, **model_kw) -> None:
     """``arch``'s loss and gradients (unless ``train`` is False), a decode
-    step on a placed cache and, with ``prefill``, a prefill, each gathered
-    whole, under ``tag``."""
+    step on a placed cache (laid out as the policy says, or with ``kv_seq``
+    along its sequence on the model axis, as a model axis its KV heads do
+    not divide lays it out) and, with ``prefill``, a prefill, each gathered
+    whole, under ``tag``; the decode step's collectives as ``CommCounter``
+    records them."""
     tag = tag or arch
     cfg = get_config(arch).reduced()
     model = Model(cfg, **model_kw)
@@ -118,14 +179,20 @@ def model_case(mesh, arch: str, out: dict, tag: str = "", train: bool = True,
     if train:
         train_case(mesh, model, plain, tag, out)
     policy = build_policy(cfg, DECODE, mesh)
+    rules = policy.rules
+    if kv_seq:
+        rules = AxisRules(tuple((name, "model" if name == "kv_seq" else target)
+                                for name, target in rules.rules))
     cache, batch = decode_inputs(model)
-    cache_axes = model.cache_axes(DECODE, kv_shardable=policy.kv_heads_sharded)
-    cache = distribute_tree(cache, tree_placements(cache_axes, mesh, policy.rules))
+    cache_axes = model.cache_axes(DECODE, kv_shardable=policy.kv_heads_sharded and not kv_seq)
+    cache = distribute_tree(cache, tree_placements(cache_axes, mesh, rules))
     out[f"{tag}/cache_placements"] = [str(t.placements) for t in leaves(cache)]
-    params = distribute_tree(plain, tree_placements(model.axes(), mesh, policy.rules))
-    batch = distribute_tree(batch, tree_placements(model.input_axes(DECODE), mesh, policy.rules))
-    with use_rules(policy.rules), torch.no_grad():
+    params = distribute_tree(plain, tree_placements(model.axes(), mesh, rules))
+    axes = model.input_axes(DECODE)
+    batch = distribute_tree(batch, tree_placements({k: axes[k] for k in batch}, mesh, rules))
+    with use_rules(rules), torch.no_grad(), CommCounter() as counter:
         logits, cache = model.decode_step(params, cache, batch)
+    out[f"{tag}/decode_records"] = counter.records
     out[f"{tag}/decode_logits"] = full(logits)
     out[f"{tag}/decode_cache"] = [full(t) for t in leaves(cache)]
     if prefill:
@@ -135,10 +202,12 @@ def model_case(mesh, arch: str, out: dict, tag: str = "", train: bool = True,
 def prefill_case(mesh, model: Model, plain: dict, tag: str, out: dict) -> None:
     """A prefill of the training batch's prompts on the mesh: its logits
     and decode state, gathered whole."""
-    rules = build_policy(model.cfg, PREFILL, mesh).rules
+    cell = train_cell(model.cfg)
+    cell = ShapeCell("mesh_prefill", "prefill", cell.seq_len, cell.global_batch)
+    rules = build_policy(model.cfg, cell, mesh).rules
     params = distribute_tree(plain, tree_placements(model.axes(), mesh, rules))
-    batch = {"tokens": train_batch(model.cfg)["tokens"]}
-    batch = distribute_tree(batch, tree_placements(model.input_axes(PREFILL), mesh, rules))
+    batch = distribute_tree(prompt_batch(model.cfg),
+                            tree_placements(model.input_axes(cell), mesh, rules))
     with use_rules(rules), torch.no_grad():
         logits, state = model.prefill(params, batch)
     out[f"{tag}/prefill_logits"] = full(logits)
@@ -147,18 +216,43 @@ def prefill_case(mesh, model: Model, plain: dict, tag: str, out: dict) -> None:
 
 def train_case(mesh, model: Model, plain: dict, tag: str, out: dict) -> None:
     cfg = model.cfg
-    rules = build_policy(cfg, TRAIN, mesh).rules
+    cell = train_cell(cfg)
+    rules = build_policy(cfg, cell, mesh).rules
     params = distribute_tree(plain, tree_placements(model.axes(), mesh, rules))
     p_leaves = leaves(params)
     for p in p_leaves:
         p.requires_grad_(True)
-    batch = distribute_tree(train_batch(cfg), tree_placements(model.input_axes(TRAIN), mesh, rules))
+    batch = distribute_tree(train_batch(cfg), tree_placements(model.input_axes(cell), mesh, rules))
     with use_rules(rules):
         loss, _ = model.loss(params, batch)
         grads = torch.autograd.grad(loss, p_leaves)
     out[f"{tag}/loss"] = full(loss).detach()
     for (path, _), g in zip(flatten_with_paths(params), grads):
         out[f"{tag}/grad{path}"] = full(g)
+
+
+def combine_case(mesh, out: dict) -> None:
+    """Decode attention over one layer's cache (gemma-2b's reduced widths:
+    4 query heads, one KV head) sharded along its sequence: each rank's
+    partial output and lse on its own positions (lengths DECODE_INDEX + 1,
+    so one slot has none in the second half), and the sharded path's
+    output, gathered whole."""
+    rng = np.random.default_rng(5)
+    b, s, h, d = DECODE.global_batch, DECODE.seq_len, 4, 32
+    q = torch.as_tensor(rng.normal(size=(b, 1, h, d)), dtype=torch.float32)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, 1, d)), dtype=torch.float32)
+            for _ in range(2))
+    lengths = torch.tensor(DECODE_INDEX, dtype=torch.int32) + 1
+    out["combine/inputs"] = (q, k, v, lengths)
+    whole, seq = Layout(mesh, (Replicate(), Replicate())), Layout(mesh, (Replicate(), Shard(1)))
+    kd, vd = seq.place(k), seq.place(v)
+    s_local = kd.to_local().shape[1]
+    first = mesh.get_local_rank(1) * s_local
+    out["combine/partial"] = ops._paged_over_slots(
+        q[:, 0], kd.to_local(), vd.to_local(), (lengths - first).clamp(0, s_local).int(),
+        return_lse=True)
+    out["combine/out"] = full(ops.slot_decode_attention(whole.place(q), kd, vd,
+                                                        whole.place(lengths)))
 
 
 def moe_comms_case(mesh, out: dict) -> None:
@@ -278,8 +372,8 @@ def close(got: torch.Tensor, want: torch.Tensor, tol: float, what: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=["world2", "world1", "collectives", "families2"],
-                    required=True)
+    ap.add_argument("--phase", choices=["world2", "world1", "collectives", "families2",
+                                        "families3"], required=True)
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--init", required=True, help="rendezvous file")
@@ -294,6 +388,7 @@ def main() -> None:
     if args.phase == "world2":
         for arch in ARCHS:
             model_case(mesh, arch, out)
+        combine_case(mesh, out)
         ckpt_case(mesh, ckpt_dir, out)
     elif args.phase == "families2":
         for tag, (arch, kw) in FAMILIES.items():
@@ -301,6 +396,10 @@ def main() -> None:
         for tag, (arch, kw) in INT8.items():
             model_case(mesh, arch, out, tag, train=False, prefill=True, **kw)
         moe_comms_case(mesh, out)
+    elif args.phase == "families3":
+        for arch in FAMILIES3:
+            model_case(mesh, arch, out, prefill=True)
+        model_case(mesh, "musicgen-medium", out, KV_SEQ, train=False, kv_seq=True)
     elif args.phase == "world1":
         restore_case(mesh, ckpt_dir, out)
         run = train("yi-6b", ckpt_dir=os.path.join(args.out, "launch"), **LAUNCH)
