@@ -218,11 +218,19 @@ From the root of a checkout, on a machine with one NVIDIA H100 and nvcc:
    of ``[train]``'s step, ``[train-hybrid]``'s step and
    ``[profile-llama3]``'s decode step beside their measured times, with
    the card's name and power limit; a bound above a measured time fails
-   the script. ``[dryrun]``: ``python -m repro_torch.launch.dryrun`` on
-   llama3-70b's decode_32k and train_4k on the 16 x 16 mesh, started as a
-   process of its own when the script starts and read here: it must exit
-   0, and each record must be ``ok`` with per-rank bytes, ``fits`` and the
-   three roofline terms;
+   the script. ``[dryrun]``: the dry run's command line on llama3-70b's
+   decode_32k and train_4k on the 16 x 16 mesh, in a process of its own
+   started when the script starts (``chip_smoke.py --dryrun-side``) and
+   read here: it must exit 0, and each record must be ``ok`` with per-rank
+   bytes, the three roofline terms and ``memory_analysis`` (a peak at
+   least the held bytes, ``fits`` equal to the peak within the budget; held
+   and peak printed). ``[mem-peak]``: the same process first counts
+   ``[train]``'s step and one of ``[profile]``'s decode steps on meta
+   tensors under ``MemCounter``; the card's allocator read the same two
+   steps (``[train]`` takes its step on weights drawn for it alone, before
+   its own steps); each meta peak must be within ``MEM_PEAK_TOL`` of the
+   card's, printed by held bytes and temporaries. ``[simlint]``, after
+   the build: the port's simlint over ``src/repro_torch``, clean;
 8. prints the earlier design's times at the JSON line's shapes on a line
    of their own (``[prior]``, copied from PERF.md, not measured here), the
    kernels' JSON line (each entry carries the timing floor; flash and paged
@@ -332,6 +340,7 @@ from repro_torch.distributed.sharding import (  # noqa: E402
 )
 from repro_torch.launch.analytic_cost import cell_cost  # noqa: E402
 from repro_torch.launch.comm_count import CommCounter  # noqa: E402
+from repro_torch.launch.mem_count import MemCounter, storage_bytes  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.policy import build_policy  # noqa: E402
 from repro_torch.launch.roofline import Roofline, model_flops_estimate  # noqa: E402
@@ -364,6 +373,7 @@ from repro_torch.training import (  # noqa: E402
     init_train_state,
     make_train_step,
 )
+from repro_torch.training.train_loop import abstract_train_state  # noqa: E402
 from repro_torch.training.tree import flatten_with_paths, leaves  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor-core
@@ -626,6 +636,11 @@ MESH_DECODE_EMBED = dict(layers=2, slots=8, c_max=512, prompt=128, steps=8)
 # decode_32k and train_4k on the 16 x 16 mesh, a process of its own started
 # with the script and read after ``[roofline]``.
 DRYRUN = dict(arch="llama3-70b", shapes=("decode_32k", "train_4k"), timeout=900)
+#: ``[mem-peak]``: how far the dry run's meta count of a step's peak may
+#: stand from the card's (a share of the card's peak). The meta count sees
+#: every storage an op makes; the card also holds what a library allocates
+#: inside a call (cuBLAS's workspace) and what a cached block rounds up to.
+MEM_PEAK_TOL = 0.05
 
 
 def fail(msg: str) -> None:
@@ -1058,10 +1073,30 @@ def serve_int8_phase(dense_srv) -> dict:
     return check_served(result, DENSE, ("paged_attention",), "serve-int8")
 
 
+def card_step_memory(fn, held: tuple) -> dict:
+    """One call of ``fn`` on the card, as ``[mem-peak]`` compares it with
+    the meta count: ``held_bytes``, the storages of the trees in ``held``
+    (each rounded as the caching allocator rounds a block, as
+    ``storage_bytes`` counts them on meta tensors), ``temp_bytes``, the most
+    the allocator held during the call above what it held before it, and
+    ``peak_bytes``, their sum."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - before
+    del out
+    held_bytes = storage_bytes(*held)
+    return {"held_bytes": held_bytes, "temp_bytes": temp, "peak_bytes": held_bytes + temp}
+
+
 def profile_decode(srv, tag: str, steps: int = 10) -> dict:
     """Where a decode step's time goes: the short pool's engine with all 8
     slots busy, ``steps`` decode steps under torch.profiler. Returns the
-    step time, the device's busy share and the kernels by device time."""
+    step time, the device's busy share and the kernels by device time; for
+    ``[profile]``, also one decode step's memory on the card (``mem``, for
+    ``[mem-peak]``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     model, params = srv.short_engine.model, srv.short_engine.params
@@ -1073,6 +1108,15 @@ def profile_decode(srv, tag: str, steps: int = 10) -> dict:
     for _ in range(3):  # admission + prefill, then warm decode steps
         eng.step()
     torch.cuda.synchronize()
+    mem = None
+    if tag == "profile":  # [mem-peak]'s card side: one decode step's peak
+        batch = {"tokens": torch.from_numpy(eng._token_buf[:, None]).to(eng.device),
+                 "index": torch.from_numpy(eng._index_buf).to(eng.device)}
+        mem = card_step_memory(lambda: eng.model.decode_step(eng.params, eng.cache.state, batch),
+                               (eng.params, eng.cache.state))
+        print(f"[mem-peak] a [{tag}] decode step on the card (8 slots x "
+              f"{SERVE['short_cmax']}): held {mem['held_bytes'] / 1e9:.3f} GB, temporaries "
+              f"{mem['temp_bytes'] / 1e9:.4f} GB, peak {mem['peak_bytes'] / 1e9:.3f} GB", flush=True)
     # The device trace can lose a few kernels, mostly at the start of the
     # first profiled step, so a count may read low and never high; one
     # warm-up step under the profiler before the counted ones makes that
@@ -1103,6 +1147,7 @@ def profile_decode(srv, tag: str, steps: int = 10) -> dict:
     )
     out["kernels_per_step"] = sum(e.count for e in kernels) / steps
     out["host_syncs"] = decode_syncs(eng)
+    out["mem"] = mem
     print(f"[{tag}] short pool, 8 busy slots: {out['step_ms']:.3f} ms per decode step, "
           f"device busy {100 * out['busy_share']:.1f}% of the wall, "
           f"{out['kernels_per_step']:.1f} kernels per step (at most {MAX_KERNELS_PER_STEP[tag]}), "
@@ -2249,7 +2294,9 @@ def train_phase(dev) -> dict:
     loss finite, the last three below the first, two flash forward
     launches (the forward and its recompute) and one backward a layer and
     step. Then one step under the profiler: kernels a step, the device's
-    busy share, the attention backward's share."""
+    busy share, the attention backward's share. Before the steps, one step
+    on weights drawn for it alone gives ``[mem-peak]`` the card's peak
+    (``mem``)."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = cut_config(DENSE, TRAIN["layers"], "train")
@@ -2264,6 +2311,18 @@ def train_phase(dev) -> dict:
     n_params = sum(p.numel() for p in leaves(params))
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
                                   global_batch=TRAIN["batch"]))
+    # [mem-peak]'s card side: one step's peak, read by the allocator; the
+    # step trains the weights, so [train]'s steps start from a fresh draw
+    mem = card_step_memory(lambda: step_fn(params, opt, data.batch(0), 0), (params, opt))
+    print(f"[mem-peak] [train]'s step on the card: held {mem['held_bytes'] / 1e9:.3f} GB, "
+          f"temporaries {mem['temp_bytes'] / 1e9:.3f} GB, peak {mem['peak_bytes'] / 1e9:.3f} GB",
+          flush=True)
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, opt = init_train_state(model, tcfg, 0, device=dev)
+    with torch.no_grad():
+        temper_attention(params)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -2309,7 +2368,7 @@ def train_phase(dev) -> dict:
         tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak_gb, n_params=n_params,
         kernels_per_step=sum(c for c, _ in kernels.values()), busy_share=busy_ms / prof_wall_ms,
         attn_bwd_ms=bwd_ms, attn_bwd_share=bwd_ms / busy_ms, attn_fwd_ms=fwd_ms,
-        profiled_wall_ms=prof_wall_ms,
+        profiled_wall_ms=prof_wall_ms, mem=mem,
     )
     top = sorted(kernels.items(), key=lambda kv: kv[1][1], reverse=True)[:8]
     print(f"[train] step {step_ms:.1f} ms (median of steps 2-{steps - 1}; first {1e3 * walls[0]:.1f} "
@@ -2888,14 +2947,55 @@ def roofline_phase(trained: dict, trained_hybrid: dict, llama3: dict, smi: str) 
     return out
 
 
+def meta_step_memory() -> dict:
+    """``[mem-peak]``'s meta side (in the ``[dryrun]`` process, on its CPU):
+    ``[train]``'s step (the same config, AdamW state and batch) and one of
+    ``[profile]``'s decode steps (yi-6b, 8 slots x the short pool's
+    c_max) on meta tensors under ``MemCounter``, each with its arguments'
+    storages as the held bytes: what the dry run counts, at shapes the
+    card runs."""
+    cfg = dataclasses.replace(get_config(DENSE), n_layers=TRAIN["layers"])
+    model = Model(cfg, remat=TRAIN["remat"])
+    tcfg = TrainConfig(peak_lr=TRAIN["peak_lr"], warmup_steps=max(2, TRAIN["steps"] // 20),
+                       total_steps=TRAIN["steps"])
+    step_fn, _ = make_train_step(model, tcfg)
+    params, opt = abstract_train_state(model, tcfg)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                   global_batch=TRAIN["batch"])).batch(0)
+    with MemCounter(storage_bytes(params, opt)) as mem:
+        step_fn(params, opt, batch, 0)
+    out = {"train": mem.stats()}
+    model = Model(get_config(DENSE))
+    params = model.abstract()
+    cache = SlotKVCache(model, SERVE["short_cmax"], SERVE["short_slots"], device="meta").state
+    slots = SERVE["short_slots"]
+    batch = {"tokens": torch.zeros((slots, 1), dtype=torch.int32, device="meta"),
+             "index": torch.zeros((slots,), dtype=torch.int32, device="meta")}
+    with MemCounter(storage_bytes(params, cache)) as mem:
+        model.decode_step(params, cache, batch)
+    out["decode"] = mem.stats()
+    return out
+
+
+def dryrun_side(out: Path) -> None:
+    """The ``[dryrun]`` process's work (``chip_smoke.py --dryrun-side OUT``):
+    ``[mem-peak]``'s meta steps into ``OUT/mem_meta.json``, then the dry
+    run's command line on ``DRYRUN``'s cells, its records under ``OUT``."""
+    (out / "mem_meta.json").write_text(json.dumps(meta_step_memory()))
+    from repro_torch.launch import dryrun
+
+    sys.argv = ["dryrun", "--arch", DRYRUN["arch"], "--shape", *DRYRUN["shapes"],
+                "--out", str(out)]
+    dryrun.main()
+
+
 def start_dryrun() -> tuple[subprocess.Popen, float, Path]:
     """``[dryrun]``'s process, started at once so that it runs beside the
     card's phases (a process has one process group; the dry run's is fake).
     It is killed at exit if the script ends before reading it."""
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
     out = Path(tempfile.mkdtemp(prefix="dryrun_"))
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN["arch"],
-           "--shape", *DRYRUN["shapes"], "--out", str(out)]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--dryrun-side", str(out)]
     # files, not pipes: nothing reads the process until [dryrun], and a full
     # pipe would stall it
     with open(out / "stdout", "w") as stdout, open(out / "stderr", "w") as stderr:
@@ -2906,8 +3006,9 @@ def start_dryrun() -> tuple[subprocess.Popen, float, Path]:
 
 def dryrun_phase(proc: subprocess.Popen, started: float, out: Path) -> list:
     """``[dryrun]``: waits for the dry run's process (a failing one fails
-    the script) and gates each record: status ok, per-rank bytes, ``fits``
-    and the three roofline terms."""
+    the script) and gates each record: status ok, per-rank bytes, the three
+    roofline terms, and ``memory_analysis``: a peak at least the held
+    bytes, and ``fits`` equal to the peak within the budget."""
     t0 = time.perf_counter()
     try:
         proc.wait(timeout=DRYRUN["timeout"])
@@ -2929,10 +3030,73 @@ def dryrun_phase(proc: subprocess.Popen, started: float, out: Path) -> list:
         if rec["status"] != "ok" or not rec["bytes_per_rank"]["total"] or "fits" not in rec or not all(
                 isinstance(r[k], float) and r[k] > 0 for k in ("compute_s", "memory_s", "collective_s")):
             fail(f"[dryrun] record incomplete: {rec}")
+        mem = rec.get("memory_analysis") or {}
+        if not {"argument_bytes", "peak_bytes", "temp_bytes"} <= set(mem):
+            fail(f"[dryrun] {rec['shape']}: memory_analysis incomplete: {mem}")
+        budget = H100_SXM.mem_util * H100_SXM.hbm_bytes
+        if (mem["peak_bytes"] < mem["argument_bytes"] or mem["temp_bytes"] != mem["peak_bytes"]
+                - mem["argument_bytes"] or rec["fits"] != (mem["peak_bytes"] <= budget)):
+            fail(f"[dryrun] {rec['shape']}: peak {mem['peak_bytes']} against held "
+                 f"{mem['argument_bytes']}, fits {rec['fits']} against a budget of {budget:.0f}")
+        print(f"[dryrun] {DRYRUN['arch']} {rec['shape']}: held {mem['argument_bytes'] / 1e9:.3f} "
+              f"GB, peak {mem['peak_bytes'] / 1e9:.3f} GB a rank"
+              + (" (a lower bound)" if "lower_bound" in mem else "")
+              + f", fits {rec['fits']} ({budget / 1e9:.1f} GB budget)", flush=True)
     print(f"[dryrun] {len(records)} records of {DRYRUN['arch']} on pod16x16, ok; the process "
           f"ran beside the card's phases from {t0 - started:.1f} s before this phase; waited "
           f"{time.perf_counter() - t0:.1f} s for it", flush=True)
     return records
+
+
+def mem_peak_phase(out: Path, card: dict) -> dict:
+    """``[mem-peak]``: the dry run's meta count of ``[train]``'s step and of
+    a ``[profile]`` decode step (``mem_meta.json`` from the ``[dryrun]``
+    process) against the card's reading of the same steps: the peaks must
+    be within ``MEM_PEAK_TOL`` of the card's; printed by held bytes and by
+    temporaries."""
+    meta = json.loads((out / "mem_meta.json").read_text())
+    for name, what in (("train", f"[train]'s step ({DENSE} {TRAIN['layers']} layers, "
+                                 f"B={TRAIN['batch']} L={TRAIN['seq']}, remat "
+                                 f"{TRAIN['remat']}, AdamW)"),
+                       ("decode", f"a [profile] decode step ({DENSE}, "
+                                  f"{SERVE['short_slots']} slots x {SERVE['short_cmax']})")):
+        c, m = card[name], meta[name]
+        rel = (m["peak_bytes"] - c["peak_bytes"]) / c["peak_bytes"]
+        print(f"[mem-peak] {what}: card held {c['held_bytes'] / 1e9:.4f} GB + temporaries "
+              f"{c['temp_bytes'] / 1e9:.4f} GB = {c['peak_bytes'] / 1e9:.4f} GB; meta held "
+              f"{m['held_bytes'] / 1e9:.4f} GB + {m['temp_bytes'] / 1e9:.4f} GB = "
+              f"{m['peak_bytes'] / 1e9:.4f} GB; meta - card: held "
+              f"{(m['held_bytes'] - c['held_bytes']) / 1e6:+.2f} MB, temporaries "
+              f"{(m['temp_bytes'] - c['temp_bytes']) / 1e6:+.2f} MB, peak {100 * rel:+.3f} %",
+              flush=True)
+        if abs(rel) > MEM_PEAK_TOL:
+            fail(f"[mem-peak] {name}: the meta peak is {100 * rel:+.2f} % from the card's "
+                 f"(at most {100 * MEM_PEAK_TOL:.0f} %)")
+    return meta
+
+
+def simlint_phase() -> None:
+    """``[simlint]``: the port's simlint (``repro_torch.analysis``) over
+    ``src/repro_torch``; any finding fails the script."""
+    from repro_torch.analysis.core import (
+        SourceFile,
+        analyze_files,
+        default_rules,
+        iter_python_files,
+    )
+
+    t0 = time.perf_counter()
+    files = [SourceFile.load(p) for p in iter_python_files([SRC / "repro_torch"])]
+    rules = default_rules()
+    findings = analyze_files(files, rules)
+    ms = 1e3 * (time.perf_counter() - t0)
+    for f in findings:
+        print(f"[simlint] {f.format()}")
+    print(f"[simlint] {'clean' if not findings else f'{len(findings)} finding(s)'}: "
+          f"{len(files)} files, {len(rules)} rules ({', '.join(r.name for r in rules)}), "
+          f"{ms:.0f} ms", flush=True)
+    if findings:
+        fail(f"[simlint] {len(findings)} finding(s) in src/repro_torch")
 
 
 def ssd_bwd_bytes(B: int, H: int, L: int, P: int, N: int, group: int, bc_size: int) -> dict:
@@ -3379,6 +3543,7 @@ def main() -> None:
     for line in reports["flash_attention_bwd"].splitlines():
         if "Performance Loss" in line or "serialized" in line:
             print(f"[build] flash_attention_bwd ptxas: {line.strip()}")
+    simlint_phase()
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
     floor = timing_floor(dev, flush)
@@ -3451,7 +3616,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     served = serve_phase(DENSE, ("flash_attention", "paged_attention"), "serve")
-    profile_decode(served["server"], "profile")
+    decode_mem = profile_decode(served["server"], "profile")["mem"]
     served8 = serve_int8_phase(served["server"])  # before logits_check tempers the weights
     profile_decode(served8["server"], "profile-int8")
     logits_check(served["server"], "logits")
@@ -3487,10 +3652,11 @@ def main() -> None:
     t_roof = time.perf_counter()
     roofline_phase(trained, trained_hybrid, width_runs[LLAMA3], smi)
     dryrun_phase(*dryrun)
+    mem_peak_phase(dryrun[2], {"train": trained["mem"], "decode": decode_mem})
     print(f"[time] [mesh], [decode-mesh-moe], [decode-mesh-vlm-audio], [train-mesh], "
           f"[train-mesh-hybrid], [train-mesh-xlstm], [roofline] and the wait for [dryrun] took "
           f"{mesh_s + time.perf_counter() - t_roof:.1f} s together", flush=True)
-    stamp("roofline and dryrun")
+    stamp("roofline, dryrun and mem-peak")
     embed_runs = new_model_phases(dev, stamp)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3655,4 +3821,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dryrun-side"]:
+        dryrun_side(Path(sys.argv[2]))
+    else:
+        main()

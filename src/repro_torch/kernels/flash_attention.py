@@ -62,6 +62,10 @@ BWD_MAX_SPLIT = 8
 #: K and V's load and the stores, and the cluster's combine when split.
 BWD_ITEM_COST = 3
 BWD_COMBINE_COST = 2
+#: Head dims at which the bf16 backward takes the tensor-core variant.
+BWD_TC_HEAD_DIMS = (64, 80, 128)
+#: The SMs of an H100 SXM, which a call on meta tensors plans for.
+H100_SMS = 132
 
 
 class BackwardSchedule(NamedTuple):
@@ -126,12 +130,16 @@ def backward_schedule(B: int, H: int, KH: int, Lq: int, Lk: int, causal: bool,
 @functools.lru_cache(maxsize=None)
 def _work_list(schedule: BackwardSchedule, device: torch.device) -> torch.Tensor:
     """A schedule's items as the kernel reads them: int32 (n, 5) on the
-    card, copied once per shape and device."""
-    return torch.tensor(schedule.items, dtype=torch.int32, device=device)
+    card, copied once per shape and device (a copy that a dispatch mode
+    sees, so the dry run's memory count has it too)."""
+    return torch.tensor(schedule.items, dtype=torch.int32).to(device)
 
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
+    """The card's SMs; a meta call plans for an H100 SXM's."""
+    if device.type == "meta":
+        return H100_SMS
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -266,6 +274,16 @@ def backward_variant(head_dim: int, dtype: torch.dtype) -> str:
     return "tc" if code == 1 else "simt"
 
 
+def forward_buffers(q: torch.Tensor, return_lse: bool):
+    """What a forward launch allocates, on the card and on meta tensors
+    alike: the output (q's layout) and, with ``return_lse``, the f32
+    (B, H, Lq) log-sum-exp (else None)."""
+    b, h, lq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if return_lse else None
+    return out, lse
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -281,13 +299,16 @@ def flash_attention(
     log-sum-exp, f32 (B, H, Lq), and the call returns (out, lse); serving
     leaves it off and its launches do no more work than before. No
     gradient: :class:`FlashAttention` is the differentiable call."""
-    if q.device.type in ("cpu", "meta"):  # meta: shapes only, as the dry run runs it
+    if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, return_lse=return_lse)
-    _check(q, k, v, causal)
+    meta = q.device.type == "meta"
+    if not meta:
+        _check(q, k, v, causal)
+    out, lse = forward_buffers(q, return_lse)
+    if meta:  # the dry run: what the launch allocates, no launch
+        return (out, lse) if return_lse else out
     b, h, lq, d = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    lse = torch.empty(b, h, lq, dtype=torch.float32, device=q.device) if return_lse else None
     kind = variant(d, q.dtype)
     fn = _build.kernel_fn("flash_attention")
     code = fn(
@@ -308,11 +329,39 @@ def flash_attention(
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` if the kernels can read it through its strides, else a dense
-    copy."""
+    copy. A meta tensor's address is its offset into its storage (the
+    allocator's blocks are 512-byte aligned)."""
     step = 16 // t.element_size()
-    if t.stride(3) == 1 and not any(st % step for st in _strides(t)) and t.data_ptr() % 16 == 0:
+    addr = t.storage_offset() * t.element_size() if t.device.type == "meta" else t.data_ptr()
+    if t.stride(3) == 1 and not any(st % step for st in _strides(t)) and addr % 16 == 0:
         return t
     return t.contiguous()
+
+
+def backward_kind(head_dim: int, dtype: torch.dtype) -> str:
+    """The backward's variant by the C entry point's rule, without building
+    the library (what a meta call plans for): ``"tc"`` for bf16 at
+    :data:`BWD_TC_HEAD_DIMS`, ``"simt"`` otherwise."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in BWD_TC_HEAD_DIMS else "simt"
+
+
+def backward_buffers(q, k, v, o, do, causal: bool, kind: str):
+    """What a backward launch allocates, on the card and on meta tensors
+    alike: dense copies of o and dO where the kernels cannot read them
+    through their strides, dq, dk, dv (the layouts of q, k, v), the f32
+    (B, H, Lq) row sums ``delta``, and for the tensor-core variant the
+    schedule, whose work list is copied to the device once per shape.
+    Returns (o, do, dq, dk, dv, delta, schedule or None)."""
+    b, h, lq, _ = q.shape
+    n_kv, lk = k.shape[1], k.shape[2]
+    o, do = _aligned(o), _aligned(do)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
+    sched = None
+    if kind == "tc":
+        sched = backward_schedule(b, h, n_kv, lq, lk, causal, _sm_count(q.device))
+        _work_list(sched, q.device)
+    return o, do, dq, dk, dv, delta, sched
 
 
 def flash_attention_backward(
@@ -329,9 +378,11 @@ def flash_attention_backward(
     :func:`flash_attention_backward_plain` on the CPU. The gradients take
     the layouts of q, k and v (``empty_like``). The tensor-core variant runs
     :func:`backward_schedule`'s work list for the shape."""
-    if q.device.type in ("cpu", "meta"):  # meta: shapes only, as the dry run runs it
+    if q.device.type == "cpu":
         return flash_attention_backward_plain(q, k, v, o, lse, do, causal=causal)
-    _check(q, k, v, causal)
+    meta = q.device.type == "meta"
+    if not meta:
+        _check(q, k, v, causal)
     b, h, lq, d = q.shape
     n_kv, lk = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
@@ -341,13 +392,12 @@ def flash_attention_backward(
         )
     if lse.shape != (b, h, lq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous f32 {(b, h, lq)}, got {tuple(lse.shape)}")
-    o, do = _aligned(o), _aligned(do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(b, h, lq, dtype=torch.float32, device=q.device)
-    kind = backward_variant(d, q.dtype)
+    kind = backward_kind(d, q.dtype) if meta else backward_variant(d, q.dtype)
+    o, do, dq, dk, dv, delta, sched = backward_buffers(q, k, v, o, do, causal, kind)
+    if meta:  # the dry run: what the launch allocates, no launch
+        return dq, dk, dv
     work, n_work, split = 0, 0, 1
-    if kind == "tc":
-        sched = backward_schedule(b, h, n_kv, lq, lk, causal, _sm_count(q.device))
+    if sched is not None:
         work, n_work, split = (_work_list(sched, q.device).data_ptr(), len(sched.items),
                                sched.split)
     strides = (ctypes.c_longlong * 24)(

@@ -181,6 +181,17 @@ def _check(q, k_pages, v_pages, block_tables, lengths, k_scales=None, v_scales=N
         raise ValueError("paged_attention needs 16-byte aligned pages")
 
 
+def output_buffers(q: torch.Tensor, return_lse: bool):
+    """What a launch allocates, on the card and on meta tensors alike: the
+    output (B, H, D) in q's dtype and, with ``return_lse``, the f32 (B, H)
+    log-sum-exp (else None). The splits combine inside the kernel's
+    cluster, so there is no workspace, whatever the pages' dtype."""
+    b, h, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
+    return out, lse
+
+
 def paged_attention(
     q: torch.Tensor,
     k_pages: torch.Tensor,
@@ -199,21 +210,24 @@ def paged_attention(
     where its cluster combines its shares. Decode has no
     backward kernel: on CUDA inputs that require grad, with grad mode on,
     it raises rather than return an output with no gradient."""
-    if q.device.type in ("cpu", "meta"):  # meta: shapes only, as the dry run runs it
+    if q.device.type == "cpu":
         return paged_attention_plain(
             q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales,
             return_lse=return_lse,
         )
     refuse_grad("paged_attention (decode attention's backward kernel)",
                 q, k_pages, v_pages, k_scales, v_scales)
-    _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
+    meta = q.device.type == "meta"
+    if not meta:
+        _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
+    out, lse = output_buffers(q, return_lse)
+    if meta:  # the dry run: what the launch allocates, no launch
+        return (out, lse) if return_lse else out
     b, h, d = q.shape
     _, page, n_kv, _ = k_pages.shape
     pps = block_tables.shape[1]
     splits = split_count(b, h, n_kv, pps * page, _sm_count(q.device))
     quant = k_pages.dtype == torch.int8
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) if return_lse else None
     fn = _build.kernel_fn("paged_attention")
     code = fn(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

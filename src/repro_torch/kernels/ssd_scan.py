@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import DTYPE_CODES
+from repro_torch.kernels.flash_attention import DTYPE_CODES, H100_SMS
 
 #: Shared memory a CTA may use on sm_90 (bytes).
 MAX_SMEM = 232_448
@@ -235,6 +235,22 @@ def _check(x, log_a, b_mat, c_mat) -> None:
         raise ValueError("ssd_scan needs contiguous operands")
 
 
+def forward_buffers(x: torch.Tensor, b_mat: torch.Tensor, return_states: bool):
+    """What a forward launch allocates, on the card and on meta tensors
+    alike: y in x's dtype, the f32 (B, H, P, N) final state and, with
+    ``return_states``, the f32 (B, H, nck, P, N) state entering each chunk
+    (else None)."""
+    bsz, h, length, p = x.shape
+    n = b_mat.shape[-1]
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    s_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    states = None
+    if return_states:
+        nck = -(-length // KERNEL_CHUNK)
+        states = torch.empty((bsz, h, nck, p, n), dtype=torch.float32, device=x.device)
+    return y, s_final, states
+
+
 def ssd_scan(
     x: torch.Tensor,
     log_a: torch.Tensor,
@@ -253,24 +269,16 @@ def ssd_scan(
         if return_states:
             raise ValueError("return_states is for the forward without grad")
         return SSDScan.apply(x, log_a, b_mat, c_mat)
-    if x.device.type == "meta":  # shapes only, as the dry run runs it
-        bsz, h, length, p = x.shape
-        out = (torch.empty_like(x), x.new_empty((bsz, h, p, b_mat.shape[-1]), dtype=torch.float32))
-        if return_states:
-            out += (x.new_empty((bsz, h, -(-length // KERNEL_CHUNK), p, b_mat.shape[-1]),
-                                dtype=torch.float32),)
-        return out
     if x.device.type == "cpu":
         return ssd_scan_plain(x, log_a, b_mat, c_mat, return_states=return_states)
-    _check(x, log_a, b_mat, c_mat)
+    meta = x.device.type == "meta"
+    if not meta:
+        _check(x, log_a, b_mat, c_mat)
+    y, s_final, states = forward_buffers(x, b_mat, return_states)
+    if meta:  # the dry run: what the launch allocates, no launch
+        return (y, s_final, states) if return_states else (y, s_final)
     bsz, h, length, p = x.shape
     n = b_mat.shape[-1]
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    s_final = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    states = None
-    if return_states:
-        nck = -(-length // KERNEL_CHUNK)
-        states = torch.empty((bsz, h, nck, p, n), dtype=torch.float32, device=x.device)
     fn = _build.kernel_fn("ssd_scan")
     code = fn(
         x.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
@@ -306,8 +314,35 @@ def bwd_group(bsz: int, h: int, length: int, sms: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _sm_count(device: torch.device) -> int:
+    """The card's SMs; a meta call plans for an H100 SXM's."""
+    if device.type == "meta":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device.index or 0).multi_processor_count
+
+
+def backward_buffers(x, log_a, b_mat, dy, ds_final, states, group: int):
+    """What a backward launch allocates, on the card and on meta tensors
+    alike: x and dy widened to f32 (copies where they are bf16), dense
+    states and ds_final, the f32 dx and dlog_a, the f32 (B, parts, L, N) dB
+    and dC partials of ``ceil(H / group)`` head groups, dB and dC in B's
+    dtype, and the dS scratch (the states' shape). Returns (xf, dyf,
+    states, ds_final, dx, dla, db_parts, dc_parts, db, dc, ds)."""
+    bsz, _, length, _ = x.shape
+    n = b_mat.shape[-1]
+    parts = -(-x.shape[1] // group)
+    xf, dyf = x.float().contiguous(), dy.float().contiguous()
+    states = states.contiguous()
+    ds_final = None if ds_final is None else ds_final.contiguous()
+    dev = x.device
+    dx = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    dla = torch.empty(log_a.shape, dtype=torch.float32, device=dev)
+    db_parts = torch.empty((bsz, parts, length, n), dtype=torch.float32, device=dev)
+    dc_parts = torch.empty_like(db_parts)
+    db = torch.empty(b_mat.shape, dtype=b_mat.dtype, device=dev)
+    dc = torch.empty_like(db)
+    ds = torch.empty_like(states)  # scratch: the gradient of the state leaving each chunk
+    return xf, dyf, states, ds_final, dx, dla, db_parts, dc_parts, db, dc, ds
 
 
 def ssd_scan_backward(
@@ -328,11 +363,11 @@ def ssd_scan_backward(
     (``bwd_variant`` "tc"; :func:`bwd_group` heads a CTA) or leave per head
     ("simt"), and the partials are summed in a fixed order by the library's
     last launch: no atomics, so two launches give the same bits."""
-    if x.device.type == "meta":  # shapes only, as the dry run runs it
-        return tuple(torch.empty_like(t) for t in (x, log_a, b_mat, c_mat))
     if x.device.type == "cpu":
         return ssd_scan_backward_plain(x, log_a, b_mat, c_mat, dy, ds_final, states)
-    _check(x, log_a, b_mat, c_mat)
+    meta = x.device.type == "meta"
+    if not meta:
+        _check(x, log_a, b_mat, c_mat)
     bsz, h, length, p = x.shape
     n = b_mat.shape[-1]
     nck = -(-length // KERNEL_CHUNK)
@@ -346,20 +381,13 @@ def ssd_scan_backward(
                                  or ds_final.dtype != torch.float32):
         raise ValueError(f"ds_final must be f32 {(bsz, h, p, n)}, got {tuple(ds_final.shape)}")
     kind = bwd_variant(p, n)
-    sms = _sm_count(x.device.index or 0)
-    group = 1 if kind == "simt" else min(bwd_group(bsz, h, length, sms), h)
-    parts = -(-h // group)
-    xf, dyf = x.float().contiguous(), dy.float().contiguous()
-    states = states.contiguous()
-    ds_final = None if ds_final is None else ds_final.contiguous()
+    group = 1 if kind == "simt" else min(bwd_group(bsz, h, length, _sm_count(x.device)), h)
+    xf, dyf, states, ds_final, dx, dla, db_parts, dc_parts, db, dc, ds = backward_buffers(
+        x, log_a, b_mat, dy, ds_final, states, group
+    )
+    if meta:  # the dry run: what the launch allocates, no launch
+        return dx.to(x.dtype), dla, db, dc
     dev = x.device
-    dx = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    dla = torch.empty(log_a.shape, dtype=torch.float32, device=dev)
-    db_parts = torch.empty((bsz, parts, length, n), dtype=torch.float32, device=dev)
-    dc_parts = torch.empty_like(db_parts)
-    db = torch.empty(b_mat.shape, dtype=b_mat.dtype, device=dev)
-    dc = torch.empty_like(db)
-    ds = torch.empty_like(states)  # scratch: the gradient of the state leaving each chunk
     fn = _build.kernel_fn("ssd_scan_bwd")
     code = fn(
         xf.data_ptr(), log_a.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),

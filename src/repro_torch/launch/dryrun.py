@@ -9,14 +9,23 @@ Adafactor above :data:`ADAFACTOR_THRESHOLD` parameters), the decode cache
 (decode cells) and the inputs as meta-device DTensors. It records:
 
 * the bytes each rank holds, for each of these and in total, from the
-  local shapes, and whether they fit ``mem_util`` x ``hbm_bytes`` of an
-  H100 (``fits``);
-* the collectives the cell's step issues (train step, prefill or decode
-  step, run on the meta DTensors under
-  :class:`~repro_torch.launch.comm_count.CommCounter`), and the roofline on
+  local shapes (``bytes_per_rank``);
+* ``memory_analysis``, the counterpart of the reference's: the step (train
+  step, prefill or decode step, run on the meta DTensors) runs under
+  :class:`~repro_torch.launch.mem_count.MemCounter`, which counts the
+  storages its ops create as the card's allocator would hold them
+  (activations, saved tensors, gradients, gathered buffers and the
+  kernels' outputs and workspace, whose wrappers allocate on meta tensors
+  what they allocate on the card): ``argument_bytes`` (what the rank
+  holds at the step's start), ``peak_bytes`` and ``temp_bytes`` (their
+  difference), and ``lower_bound`` with its reason where a meta path is
+  shapes only and saves less than the card's; ``fits`` is ``peak_bytes``
+  within ``mem_util`` x ``hbm_bytes`` of an H100;
+* the collectives the step issues (under
+  :class:`~repro_torch.launch.comm_count.CommCounter`, around the
+  ``MemCounter``), and the roofline on
   :data:`~repro_torch.core.cost_model.H100_SXM` from the analytic cost and
-  those collectives (causal attention counted as the triangle the flash
-  kernel computes), with ``useful_flops_fraction``, the model FLOPs (6 N D
+  those collectives, with ``useful_flops_fraction``, the model FLOPs (6 N D
   or 2 N D) over that count; status ``"ok"``;
 * status ``"skipped"`` where ``shape_applicable`` rules the cell out.
 
@@ -24,9 +33,12 @@ Adafactor above :data:`ADAFACTOR_THRESHOLD` parameters), the decode cache
 (default bf16) are passed to the model and to the analytic cost as the
 reference's dry run passes them; the xLSTM and hybrid families keep a bf16
 state whatever ``--kv-dtype`` says (the reference's ignore it too), and
-their cost counts the flag's bytes as the reference's does. Causal
-attention is counted as the triangle (the reference's ``--causal-mode``
-defaults to masked: the port's kernel has no masked mode).
+their cost counts the flag's bytes as the reference's does.
+``--causal-mode {triangle,masked}`` (default triangle) picks how the
+analytic cost counts causal attention: ``triangle`` is what the port's
+flash kernel computes (it never visits the blocks above the diagonal),
+``masked`` the full square, the reference's default count.
+``record["variant"]`` names the mode.
 
 Records are JSON files under ``results/dryrun_torch/`` (``--out`` to put
 them elsewhere).
@@ -36,6 +48,7 @@ Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --multi-pod
     python -m repro_torch.launch.dryrun --arch llama3-70b --shape decode_32k train_4k
     python -m repro_torch.launch.dryrun --arch qwen3-235b-a22b --shape decode_32k --kv-dtype int8
+    python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k --causal-mode masked
     python -m repro_torch.launch.dryrun --all      # every arch x shape x mesh
 """
 
@@ -56,11 +69,13 @@ from repro_torch.core.cost_model import H100_SXM
 from repro_torch.distributed.sharding import distribute_tree, local_bytes, tree_placements, use_rules
 from repro_torch.launch.analytic_cost import cell_cost
 from repro_torch.launch.comm_count import CommCounter
+from repro_torch.launch.mem_count import MemCounter, storage_bytes
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.policy import build_policy, pure_dp_policy
 from repro_torch.launch.roofline import Roofline, model_flops_estimate
 from repro_torch.models.model_zoo import KV_DTYPES, STATE_FAMILIES, Model
 from repro_torch.models.remat import REMAT_MODES
+from repro_torch.models.xlstm import SLSTM_SHAPES_ONLY, slstm_shapes_calls
 from repro_torch.training.train_loop import (
     TrainConfig,
     abstract_train_state,
@@ -78,9 +93,10 @@ RESULTS_DIR = os.path.join(
 #: (AdamW's state would not fit the mesh), as the reference's dry run does.
 ADAFACTOR_THRESHOLD = 4e10
 
-#: Causal attention is counted as the triangle: the port's flash kernel
-#: never visits the blocks above the diagonal (no masked mode).
-CAUSAL_MODE = "triangle"
+#: How the analytic cost counts causal attention: the triangle the port's
+#: flash kernel computes (it never visits the blocks above the diagonal),
+#: or the full square (``masked``, the reference's default).
+CAUSAL_MODES = ("triangle", "masked")
 
 MESHES = {False: "pod16x16", True: "pod2x16x16"}
 WORLD = 512
@@ -113,6 +129,7 @@ def run_cell(
     pure_dp: bool = False,
     remat: str = "full",
     kv_dtype: str = "bf16",
+    causal_mode: str = "triangle",
     out_dir: str = RESULTS_DIR,
 ) -> dict:
     """Place and step one cell; returns its record, also saved as JSON
@@ -137,12 +154,15 @@ def run_cell(
     model = Model(cfg, remat=remat,
                   kv_dtype="bf16" if cfg.family in STATE_FAMILIES else kv_dtype)
     record["pure_dp"] = pure_dp
-    record["variant"] = {"causal_mode": CAUSAL_MODE, "remat": remat, "kv_dtype": kv_dtype}
+    if causal_mode not in CAUSAL_MODES:
+        raise ValueError(f"causal_mode must be one of {CAUSAL_MODES}, got {causal_mode!r}")
+    record["variant"] = {"causal_mode": causal_mode, "remat": remat, "kv_dtype": kv_dtype}
 
     params = distribute_tree(model.abstract(), tree_placements(model.axes(), mesh, rules))
     batch = distribute_tree(model.input_specs(cell),
                             tree_placements(model.input_axes(cell), mesh, rules))
     held = {"params": local_bytes(params), "inputs": local_bytes(batch)}
+    args = [params, batch]
     opt_name = "adamw"
     if cell.kind == "train":
         opt_name = "adafactor" if model.param_count() > ADAFACTOR_THRESHOLD else "adamw"
@@ -150,6 +170,7 @@ def run_cell(
         _, o_abs = abstract_train_state(model, tcfg)
         opt_state = distribute_tree(o_abs, tree_placements(opt_state_axes(model, tcfg), mesh, rules))
         held["opt_state"] = local_bytes(opt_state)
+        args.append(opt_state)
         record["optimizer"] = opt_name
         model_flops = model_flops_estimate(model.active_param_count(),
                                            cell.global_batch * cell.seq_len, train=True)
@@ -160,12 +181,14 @@ def run_cell(
         cache_axes = model.cache_axes(cell, kv_shardable=policy.kv_heads_sharded)
         cache = distribute_tree(model.cache_specs(cell), tree_placements(cache_axes, mesh, rules))
         held["cache"] = local_bytes(cache)
+        args.append(cache)
         model_flops = model_flops_estimate(model.active_param_count(), cell.global_batch,
                                            train=False)
     held["total"] = sum(held.values())
     t_place = time.perf_counter()
 
-    with use_rules(rules), CommCounter() as counter:
+    slstm_before = slstm_shapes_calls()
+    with use_rules(rules), CommCounter() as counter, MemCounter(storage_bytes(*args)) as mem:
         if cell.kind == "train":
             step_fn, _ = make_train_step(model, tcfg)
             step_fn(params, opt_state, batch, 0)
@@ -176,12 +199,16 @@ def run_cell(
                 else:
                     model.decode_step(params, cache, batch)
     colls = counter.stats()
+    memory = {"argument_bytes": mem.held_bytes, "peak_bytes": mem.peak_bytes,
+              "temp_bytes": mem.temp_bytes}
+    if slstm_shapes_calls() > slstm_before:
+        memory["lower_bound"] = SLSTM_SHAPES_ONLY
     t_step = time.perf_counter()
 
     acost = cell_cost(
         cfg, cell, model.param_count(),
         moe_cf=1.25 if cell.kind == "train" else 2.0,
-        optimizer=opt_name, remat=remat, causal_mode=CAUSAL_MODE, kv_dtype=kv_dtype,
+        optimizer=opt_name, remat=remat, causal_mode=causal_mode, kv_dtype=kv_dtype,
     )
     roof = Roofline(
         flops_total=acost.flops_total,
@@ -199,8 +226,9 @@ def run_cell(
         place_s=round(t_place - t0, 2),
         step_s=round(t_step - t_place, 2),
         bytes_per_rank=held,
+        memory_analysis=memory,
         hbm_budget_bytes=budget,
-        fits=held["total"] <= budget,
+        fits=memory["peak_bytes"] <= budget,
         analytic_cost=acost.as_dict(),
         collectives={
             "counts": colls.counts,
@@ -224,15 +252,20 @@ def _save(record: dict, out_dir: str) -> None:
 
 
 def summary(rec: dict) -> str:
-    """One line for a record: per-rank bytes, fits and the three terms."""
+    """One line for a record: per-rank held and peak bytes, fits and the
+    three terms."""
     head = f"[{rec['status']}] {rec['arch']} x {rec['shape']} x {rec['mesh']}"
     if rec["status"] != "ok":
         return head
     variant = rec["variant"]
-    if (variant["remat"], variant["kv_dtype"]) != ("full", "bf16"):
-        head += f" (remat {variant['remat']}, kv {variant['kv_dtype']})"
-    r, gb = rec["roofline"], rec["bytes_per_rank"]["total"] / 1e9
-    return (f"{head}: {gb:.3f} GB a rank (fits {rec['fits']}), compute "
+    if (variant["remat"], variant["kv_dtype"], variant["causal_mode"]) != ("full", "bf16",
+                                                                             "triangle"):
+        head += (f" (remat {variant['remat']}, kv {variant['kv_dtype']}, "
+                 f"causal {variant['causal_mode']})")
+    r, mem = rec["roofline"], rec["memory_analysis"]
+    bound = " (lower bound)" if "lower_bound" in mem else ""
+    return (f"{head}: held {mem['argument_bytes'] / 1e9:.3f} GB, peak "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB{bound} a rank (fits {rec['fits']}), compute "
             f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
             f"collective {r['collective_s'] * 1e3:.3f} ms, dominant {r['dominant']}, "
             f"useful_flops_fraction {rec['useful_flops_fraction']:.4f}")
@@ -250,6 +283,9 @@ def main() -> None:
                     help="fold the model axis into data parallelism")
     ap.add_argument("--remat", default="full", choices=REMAT_MODES)
     ap.add_argument("--kv-dtype", default="bf16", choices=KV_DTYPES)
+    ap.add_argument("--causal-mode", default="triangle", choices=CAUSAL_MODES,
+                    help="causal attention counted as the triangle the kernel computes "
+                         "or as the masked square (the reference's default)")
     ap.add_argument("--out", default=RESULTS_DIR, help="directory of the JSON records")
     args = ap.parse_args()
 
@@ -265,10 +301,12 @@ def main() -> None:
     for arch, shape, multi_pod in cells:
         try:
             rec = run_cell(arch, shape, multi_pod=multi_pod, pure_dp=args.pure_dp,
-                           remat=args.remat, kv_dtype=args.kv_dtype, out_dir=args.out)
+                           remat=args.remat, kv_dtype=args.kv_dtype,
+                           causal_mode=args.causal_mode, out_dir=args.out)
             print(summary(rec), flush=True)
             print(json.dumps({k: rec.get(k) for k in ("arch", "shape", "mesh", "status",
-                                                      "bytes_per_rank", "fits", "roofline")}),
+                                                      "bytes_per_rank", "memory_analysis",
+                                                      "fits", "roofline")}),
                   flush=True)
         except Exception as e:  # one cell's failure is recorded; the others still run
             failures += 1

@@ -75,6 +75,45 @@ def _codebooks_on_shards(hidden: DTensor, heads: DTensor) -> DTensor:
         hidden.redistribute(mesh, h_pl), heads.redistribute(mesh, w_pl))
 
 
+class _TakeLabel(torch.autograd.Function):
+    """``torch.gather(lf, -1, idx)`` whose gradient is scattered into a
+    zero tensor made where it is needed. Autograd's own gather backward
+    starts from ``grad.new_zeros(lf.shape)``, which on DTensors is a
+    replicated tensor of the global shape: the whole global batch's f32
+    logits on every rank (268 GB a rank in yi-6b train_4k's dry run). Here
+    the zeros follow ``lf``'s placements, except that a vocab-sharded ``lf``
+    gets zeros whole along the vocab (the scatter's dimension, which
+    DTensor would otherwise all-gather), made on each rank with no
+    collective."""
+
+    @staticmethod
+    def forward(ctx, lf, idx):
+        ctx.save_for_backward(lf, idx)
+        return torch.gather(lf, -1, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lf, idx = ctx.saved_tensors
+        return _zeros_whole_along_last(lf).scatter_add(-1, idx, grad), None
+
+
+def _zeros_whole_along_last(t: torch.Tensor) -> torch.Tensor:
+    """Zeros like ``t``; a DTensor's keep its placements but for a shard of
+    the last dimension, which becomes whole (replicated)."""
+    if not isinstance(t, DTensor):
+        return torch.zeros_like(t)
+    last = t.ndim - 1
+    placements = tuple(Replicate() if isinstance(p, Shard) and p.dim % t.ndim == last else p
+                       for p in t.placements)
+    local = t.to_local()
+    zeros = torch.zeros((*local.shape[:-1], t.shape[-1]), dtype=t.dtype, device=local.device)
+    stride = [1] * t.ndim  # the global shape's contiguous strides
+    for d in range(t.ndim - 2, -1, -1):
+        stride[d] = stride[d + 1] * t.shape[d + 1]
+    return DTensor.from_local(zeros, t.device_mesh, placements, run_check=False,
+                              shape=t.shape, stride=tuple(stride))
+
+
 def softmax_xent(
     logits: torch.Tensor,  # (..., V): (B, L, V) or codebook (B, L, K, V)
     labels: torch.Tensor,  # (...) integer
@@ -89,7 +128,7 @@ def softmax_xent(
     lf = logits.float()
     labels = torch.as_tensor(labels, device=lf.device).long()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None])
+    gold = _TakeLabel.apply(lf, labels[..., None])
     # a vocab-sharded gather leaves a masked partial sum: reduce it here
     gold = constrain(gold, ("batch", *[None] * (gold.dim() - 1)))[..., 0]
     nll = lse - gold

@@ -205,14 +205,33 @@ def slstm_scan(
     return torch.stack(hs, dim=1).to(z_pre.dtype), (c, n, h_prev, m)
 
 
+#: Why a dry-run cell that runs the sLSTM on meta tensors has a peak that
+#: is a lower bound: what :class:`_SLSTMShapes` saves for the backward.
+SLSTM_SHAPES_ONLY = (
+    "the sLSTM loop is shapes only on meta tensors (models/xlstm.py::_SLSTMShapes): "
+    "it does not save the per-position activations the card's loop saves for the backward"
+)
+
+
+def slstm_shapes_calls() -> int:
+    """Calls of the sLSTM's shapes-only path on meta tensors in this
+    process."""
+    return _SLSTMShapes.calls
+
+
 class _SLSTMShapes(torch.autograd.Function):
     """:func:`slstm_scan`'s outputs and its inputs' gradients as meta
     tensors of their shapes and dtypes, without the loop (one position at
     a time, it would dispatch every op of every position on meta tensors:
-    minutes for a 4,096-token dry-run cell)."""
+    minutes for a 4,096-token dry-run cell). It saves none of the loop's
+    activations, so a peak counted through it is a lower bound
+    (:data:`SLSTM_SHAPES_ONLY`); :attr:`calls` counts its forwards."""
+
+    calls = 0
 
     @staticmethod
     def forward(ctx, z_pre, *rest):
+        _SLSTMShapes.calls += 1
         ctx.like = (z_pre, *rest)
         bsz, _, h, d = z_pre.shape
         state = tuple(z_pre.new_empty((bsz, h, d), dtype=torch.float32) for _ in range(4))

@@ -288,13 +288,8 @@ class _FleetLoop:
         self.th = torch.as_tensor(np.asarray(lanes["th"]).reshape(G, P - 1), dtype=I32).to(dev)
         self.ninst = torch.as_tensor(np.asarray(lanes["ninst"]), dtype=I32).to(dev)
         self.alive = torch.arange(I, device=dev) < self.ninst[:, :, None]
-        ctrl = {k: np.asarray(v).reshape(G) for k, v in lanes["ctrl"].items()}
-        self.ctrl_on = torch.as_tensor(ctrl["enabled"] > 0).to(dev)
-        self.b_min = torch.as_tensor(ctrl["b_min"], dtype=I32).to(dev)
-        self.step = torch.as_tensor(ctrl["step"], dtype=I32).to(dev)
-        self.factor = torch.as_tensor(ctrl["factor"], dtype=F32).to(dev)
-        self.err_hi = torch.as_tensor(ctrl["err_hi"], dtype=F32).to(dev)
-        self.over_hi = torch.as_tensor(ctrl["over_hi"], dtype=F32).to(dev)
+        (self.ctrl_on, self.b_min, self.step, self.factor, self.err_hi,
+         self.over_hi) = _ctrl_lanes(lanes["ctrl"], G, dev)
         # carried state
         self.st = _init_pools(spec, n, G, dev)
         self.rec = _fresh_records(n, G, dev)
@@ -692,7 +687,9 @@ class _FleetLoop:
         self._wake_fresh = False
 
     # -- outer epoch loop ----------------------------------------------------------
-    def run(self) -> dict:
+    def run(self) -> None:
+        """The device loop: epochs until every lane has dispatched its trace
+        and drained; :meth:`fold_records` then reads the results."""
         while (live := self.live()).any():
             self.drain()
             t_limit = self.arr_p[self.a_dev]  # each lane's next arrival
@@ -707,13 +704,13 @@ class _FleetLoop:
                     self.pool_round(t_limit)
                     self.rounds += 1
             self.iters += live
-        return self.fold_records()
 
     def fold_records(self) -> dict:
         """Post-loop: admission rejects (finite staged time) and submit
         rejects (prompt >= the recorded pool's C_max) get first = finish =
         the reject time. Returns the ``(G, n, ...)`` record tensors on the
-        device and the counters on the host."""
+        device and the counters on the host (read after the loop, so not
+        counted in ``host_syncs``)."""
         rec, st = self.rec, self.st
         rejt, pool = rec["rejt"], rec["pool"]
         arej = torch.isfinite(rejt)
@@ -800,6 +797,18 @@ def precompute_budget_trajectory(
             beta=beta,
         )
     return budgets, state
+
+
+def _ctrl_lanes(ctrl: dict, g: int, dev: torch.device) -> tuple:
+    """A gain pack's ``g`` lanes on the device: (enabled, b_min, step,
+    factor, err_hi, over_hi), the gains in window_step's float32."""
+    ctrl = {k: np.asarray(v).reshape(g) for k, v in ctrl.items()}
+    return (
+        torch.as_tensor(ctrl["enabled"] > 0).to(dev),
+        torch.as_tensor(ctrl["b_min"], dtype=I32).to(dev),
+        torch.as_tensor(ctrl["step"], dtype=I32).to(dev),
+        *(torch.as_tensor(ctrl[k], dtype=F32).to(dev) for k in ("factor", "err_hi", "over_hi")),
+    )
 
 
 def _ctrl_params(controller, enabled: bool) -> dict:
@@ -928,7 +937,8 @@ def run_fleet_torch(fleet, trace):
     }
     loop = _FleetLoop(spec, trace_arrays, lane, fleet.device, grid=False,
                       telemetry=fleet.telemetry is not None)
-    dev_out = loop.run()
+    loop.run()
+    dev_out = loop.fold_records()
     win = dev_out.pop("win")
     _LAST_RUN.clear()
     _LAST_RUN.update(
@@ -1264,7 +1274,8 @@ def run_fleet_grid(
     }
     lanes = {"th": th_arr, "ninst": inst_arr, "ctrl": ctrl}
     loop = _FleetLoop(spec, trace_arrays, lanes, dev, grid=True)
-    out = loop.run()
+    loop.run()
+    out = loop.fold_records()
     _LAST_RUN.clear()
     _LAST_RUN.update(
         mode="grid",

@@ -221,7 +221,7 @@ def test_dense_cells_are_ok_with_every_term(dry_records, shape):
     held = rec["bytes_per_rank"]
     parts = {"decode_32k": "cache", "train_4k": "opt_state"}[shape]
     assert held[parts] > 0 and held["total"] == sum(v for k, v in held.items() if k != "total")
-    assert rec["fits"] == (held["total"] <= 0.9 * 80e9)
+    assert rec["fits"] == (rec["memory_analysis"]["peak_bytes"] <= 0.9 * 80e9)
     r = rec["roofline"]
     for term in ("compute_s", "memory_s", "collective_s"):
         assert r[term] > 0

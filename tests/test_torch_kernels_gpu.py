@@ -1143,3 +1143,146 @@ def test_grid_on_the_card_equals_the_cpu(cuda):
         assert gg.records[k].dtype == v.dtype and gg.records[k].tobytes() == v.tobytes(), k
     for f in ("completed", "rejected", "truncated", "preemptions", "routed", "controller_moves"):
         assert np.array_equal(getattr(gg, f), getattr(cg, f)), f
+
+
+# ---------------------------------------------------------------------------
+# The dry run's memory count: each wrapper's meta branch allocates what its
+# launch allocates on the card, byte for byte
+# ---------------------------------------------------------------------------
+
+
+def _meta_like(t):
+    """A meta tensor of ``t``'s shape, strides and dtype (offset 0)."""
+    if t is None or not isinstance(t, torch.Tensor):
+        return t
+    return torch.empty_strided(t.size(), t.stride(), dtype=t.dtype, device="meta")
+
+
+def _plug_free_large_blocks(device) -> list:
+    """Tensors that fill every free block the caching allocator keeps in a
+    partly used large segment (``empty_cache`` releases only whole free
+    segments). A request that lands in such a block with less than 1 MiB
+    to spare takes the whole block, which depends on what ran before; with
+    them filled, each request of the measured call takes a fresh segment,
+    as ``block_bytes`` counts it."""
+    plugs = []
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != device.index or seg["segment_type"] != "large":
+            continue
+        for block in seg["blocks"]:
+            if block["state"] == "inactive":
+                plugs.append(torch.empty(block["size"], dtype=torch.uint8, device=device))
+    return plugs
+
+
+def _card_and_meta_bytes(fn, *args, **kwargs):
+    """(the allocator's most above what it held before one call of ``fn``
+    on the card, ``MemCounter``'s peak for the same call on meta tensors).
+    Each side is called once first: the library builds, and the flash
+    backward's work list is copied to the device once a shape."""
+    from repro_torch.launch.mem_count import MemCounter
+
+    meta_args = [_meta_like(a) for a in args]
+    fn(*args, **kwargs)
+    fn(*meta_args, **kwargs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    plugs = _plug_free_large_blocks(torch.device("cuda", torch.cuda.current_device()))
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    card = torch.cuda.max_memory_allocated() - before
+    del out, plugs
+    with MemCounter() as mem:
+        fn(*meta_args, **kwargs)
+    return card, mem.peak_bytes
+
+
+MEM_FLASH_CASES = [
+    # (B, L, H, K, D, dtype): the tensor-core and the CUDA-core variants
+    (2, 2048, 32, 4, 128, torch.bfloat16),  # yi-6b's training shape
+    (1, 200, 32, 32, 80, torch.bfloat16),
+    (2, 256, 8, 2, 64, torch.float32),
+    (1, 70, 4, 2, 32, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", MEM_FLASH_CASES)
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_flash_meta_allocations_match_the_card(cuda, case, return_lse):
+    B, L, H, K, D, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q = _randn(gen, (B, L, H, D), dtype, cuda).transpose(1, 2)  # the model's layout
+    k, v = (_randn(gen, (B, L, K, D), dtype, cuda).transpose(1, 2) for _ in range(2))
+    card, meta = _card_and_meta_bytes(flash_attention, q, k, v, causal=True,
+                                      return_lse=return_lse)
+    assert card == meta > 0
+
+
+@pytest.mark.parametrize("case", MEM_FLASH_CASES)
+def test_flash_backward_meta_allocations_match_the_card(cuda, case):
+    """dq, dk, dv, delta and, for the tensor-core variant, the variant by
+    the meta branch's rule (``backward_kind``) equal to the C entry
+    point's."""
+    from repro_torch.kernels.flash_attention import backward_kind
+
+    B, L, H, K, D, dtype = case
+    assert backward_kind(D, dtype) == backward_variant(D, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    q, k, v, do = _bwd_inputs(gen, (B, L, L, H, K, D, True, dtype), cuda)
+    o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    card, meta = _card_and_meta_bytes(flash_attention_backward, q, k, v, o, lse, do, causal=True)
+    assert card == meta > 0
+
+
+def test_flash_backward_kind_is_the_c_entry_points(cuda):
+    from repro_torch.kernels.flash_attention import SUPPORTED_HEAD_DIMS, backward_kind
+
+    for d in SUPPORTED_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            assert backward_kind(d, dtype) == backward_variant(d, dtype), (d, dtype)
+
+
+@pytest.mark.parametrize("kdt", [torch.bfloat16, torch.int8], ids=["bf16", "int8"])
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_paged_meta_allocations_match_the_card(cuda, kdt, return_lse):
+    B, H, K, D = 8, 32, 4, 128
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q = _randn(gen, (B, H, D), torch.bfloat16, cuda)
+    cache = _slot_cache(gen, B, 512, K, D, kdt, cuda)
+    pages = [t.view(-1, ops.PAGE, K, t.shape[-1]) for t in cache]
+    bt = ops.slot_block_table(B, 512, cuda)
+    lengths = torch.full((B,), 300, dtype=torch.int32, device=cuda)
+    card, meta = _card_and_meta_bytes(paged_attention, q, *pages[:2], bt, lengths, *pages[2:],
+                                      return_lse=return_lse)
+    assert card == meta > 0
+
+
+@pytest.mark.parametrize("return_states", [False, True])
+def test_ssd_forward_meta_allocations_match_the_card(cuda, return_states):
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    x, log_a, bm, cm = _ssd_inputs(gen, 2, 2048, 80, 64, 64, torch.bfloat16, torch.bfloat16, cuda)
+    card, meta = _card_and_meta_bytes(ssd_scan, x, log_a, bm, cm, return_states=return_states)
+    assert card == meta > 0
+
+
+@pytest.mark.parametrize("case", [
+    (2, 2048, 80, 64, 64, torch.bfloat16, torch.bfloat16),  # zamba2's training shape
+    (2, 2048, 13, 64, 64, torch.float32, torch.bfloat16),  # a group that does not divide H
+    (1, 100, 2, 96, 32, torch.float32, torch.float32),  # the CUDA-core chunk kernel
+])
+def test_ssd_backward_meta_allocations_match_the_card(cuda, case):
+    """The f32 copies, dx, dlog_a, the dB/dC partials, dB, dC, the dS
+    scratch and dx's cast: the meta branch plans its head groups for an
+    H100's 132 SMs, as the card does."""
+    B, L, H, P, N, xdt, bcdt = case
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != ssd_mod.H100_SMS:
+        pytest.skip("the meta branch plans for an H100's SMs")
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    x, log_a, bm, cm = _ssd_inputs(gen, B, L, H, P, N, xdt, bcdt, cuda)
+    _, _, states = ssd_scan(x, log_a, bm, cm, return_states=True)
+    dy = _randn(gen, x.shape, xdt, cuda)
+    ds_final = torch.randn((B, H, P, N), generator=gen, device=cuda)
+    card, meta = _card_and_meta_bytes(ssd_scan_backward, x, log_a, bm, cm, dy, ds_final, states)
+    assert card == meta > 0
